@@ -1,0 +1,109 @@
+"""Camera: viewport derivation and batched primary rays (counterpart of
+``srt_tpu/camera.py``; reference ``GetCamera``/``GetRay``,
+raytrace_compute.glsl:47-90).  All arithmetic is float32, in the JAX
+package's operation order."""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from srt_tpu_torch.config import CameraConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class Viewport:
+    """Derived per-frame camera frame: ``pixel00`` is the center of pixel
+    (0, 0), ``delta_u``/``delta_v`` step one pixel in x/y.  [3] tensors."""
+
+    center: torch.Tensor
+    pixel00: torch.Tensor
+    delta_u: torch.Tensor
+    delta_v: torch.Tensor
+    defocus_u: torch.Tensor
+    defocus_v: torch.Tensor
+
+
+def _normalize(v):
+    return v / torch.sqrt((v * v).sum())
+
+
+def camera_basis(origin, look_at, v_up):
+    """Right-handed (u, v, w) basis with w pointing away from the view."""
+    front = _normalize(look_at - origin)
+    right = _normalize(torch.linalg.cross(front, v_up))
+    up = _normalize(torch.linalg.cross(right, front))
+    return right, up, -front
+
+
+def derive_viewport(cfg: CameraConfig, device="cpu") -> Viewport:
+    """Build the Viewport from a CameraConfig (``GetCamera`` analog)."""
+    def vec3(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+    origin = vec3(cfg.origin)
+    u, v, w = camera_basis(origin, vec3(cfg.look_at), vec3(cfg.v_up))
+
+    if cfg.viewport_mode == "reference":
+        view_u = u * cfg.focus_dist
+        view_v = v * cfg.focus_dist
+    elif cfg.viewport_mode == "vfov":
+        h = math.tan(math.radians(cfg.vfov) / 2.0)
+        view_h = 2.0 * h * cfg.focus_dist
+        view_w = view_h * cfg.aspect
+        view_u = u * view_w
+        view_v = v * view_h
+    else:
+        raise ValueError(f"unknown viewport_mode: {cfg.viewport_mode}")
+
+    delta_u = view_u / cfg.width
+    delta_v = view_v / cfg.height
+    lower_left = origin - cfg.focus_dist * w - view_u / 2.0 - view_v / 2.0
+    pixel00 = lower_left + 0.5 * (delta_u + delta_v)
+
+    defocus_radius = cfg.focus_dist * math.tan(
+        math.radians(cfg.defocus_angle / 2.0))
+    return Viewport(center=origin, pixel00=pixel00, delta_u=delta_u,
+                    delta_v=delta_v, defocus_u=u * defocus_radius,
+                    defocus_v=v * defocus_radius)
+
+
+def generate_rays(vp: Viewport, width: int, height: int,
+                  jitter: torch.Tensor, defocus: torch.Tensor = None):
+    """Primary rays for the full image as a wavefront batch.
+
+    ``jitter``: [2, N] uniforms in [0, 1) (the pixel-area sample, centered
+    to [-0.5, 0.5)); with N = K * H * W each pixel's K samples are
+    adjacent.  ``defocus``: optional [2, N] thin-lens uniforms.  Returns
+    (origins [3, N], directions [3, N]), directions unnormalized, pixels
+    in row-major (y, x) order.
+    """
+    dev = jitter.device
+    ys, xs = torch.meshgrid(
+        torch.arange(height, dtype=torch.float32, device=dev),
+        torch.arange(width, dtype=torch.float32, device=dev),
+        indexing="ij",
+    )
+    i = xs.reshape(-1)
+    j = ys.reshape(-1)
+    if jitter.shape[1] != i.shape[0]:
+        k, rem = divmod(jitter.shape[1], i.shape[0])
+        if rem:
+            raise ValueError(f"jitter width {jitter.shape[1]} is not a "
+                             f"multiple of the pixel count {i.shape[0]}")
+        i = torch.repeat_interleave(i, k)
+        j = torch.repeat_interleave(j, k)
+    off = jitter - 0.5
+    px = vp.pixel00[:, None] \
+        + (i + off[0])[None, :] * vp.delta_u[:, None] \
+        + (j + off[1])[None, :] * vp.delta_v[:, None]
+    origins = vp.center[:, None].expand(px.shape)
+    if defocus is not None:
+        r = torch.sqrt(defocus[0])
+        theta = 2.0 * math.pi * defocus[1]
+        origins = origins \
+            + (r * torch.cos(theta))[None, :] * vp.defocus_u[:, None] \
+            + (r * torch.sin(theta))[None, :] * vp.defocus_v[:, None]
+    return origins, px - origins

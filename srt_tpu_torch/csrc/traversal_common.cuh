@@ -1,0 +1,126 @@
+// Shared device code of the walk kernels (cull.cu, intersect.cu,
+// cull_pg2.cu, pgwalk2.cu): constants, NaN-propagating min/max, the slab
+// test and the Woop unit-triangle evaluation.  The arithmetic matches the
+// plain PyTorch versions in srt_tpu_torch/ops/traversal.py operation for
+// operation; the library is built with -fmad=false, so every multiply and
+// add rounds separately on both sides and candidate t agrees bit for bit.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace srt {
+
+// Double constants rounded once to float, as the JAX package's Python
+// float constants are when they meet a float32 array.
+constexpr float BIG = (float)3.0e37;
+constexpr float EDGE_EPS = (float)1e-4;
+constexpr float EDGE_HI = (float)(1.0 + 2 * 1e-4);
+constexpr float T_EPS = (float)1e-5;
+constexpr int CLUSTER = 128;
+constexpr int SUPER = 16;
+constexpr int WOOP_ROWS = 13;        // rows used of the [C, 16, 128] table
+constexpr int WOOP_STRIDE = 16 * 128;
+constexpr int MISS_IDX = 1 << 30;
+constexpr unsigned FULL = 0xffffffffu;
+
+// Parity trap 1 (NaN): jnp.minimum/maximum propagate NaN, CUDA fminf/fmaxf
+// return the other operand.  NaN boxes pad the cluster tables and 0*inf
+// kills on-boundary axis-parallel rays only if NaN fails every compare.
+__device__ __forceinline__ float nmin(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+__device__ __forceinline__ float nmax(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, t_max, t_lo;
+};
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ rays8,
+                                        size_t i) {
+  const float4 a = reinterpret_cast<const float4*>(rays8)[2 * i];
+  const float4 b = reinterpret_cast<const float4*>(rays8)[2 * i + 1];
+  return Ray{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+}
+
+// Slab test, entry bound max(t_near, 0) (not exit-if-inside: a box entered
+// from inside can still hold candidates nearer than its exit).  FMA_FORM
+// is the pg2 cull's box*inv - o*inv, with (px, py, pz) = o*inv; otherwise
+// (box - o)*inv with (px, py, pz) = o.  *sel is +0 or positive when the
+// test passes (nmax(-0, +0) returns +0).
+template <bool FMA_FORM>
+__device__ __forceinline__ bool slab(float lx, float ly, float lz, float hx,
+                                     float hy, float hz, float px, float py,
+                                     float pz, float ix, float iy, float iz,
+                                     float bound, float* sel) {
+  float t0x, t1x, t0y, t1y, t0z, t1z;
+  if (FMA_FORM) {
+    t0x = lx * ix - px; t1x = hx * ix - px;
+    t0y = ly * iy - py; t1y = hy * iy - py;
+    t0z = lz * iz - pz; t1z = hz * iz - pz;
+  } else {
+    t0x = (lx - px) * ix; t1x = (hx - px) * ix;
+    t0y = (ly - py) * iy; t1y = (hy - py) * iy;
+    t0z = (lz - pz) * iz; t1z = (hz - pz) * iz;
+  }
+  const float t_near =
+      nmax(nmax(nmin(t0x, t1x), nmin(t0y, t1y)), nmin(t0z, t1z));
+  const float t_far =
+      nmin(nmin(nmax(t0x, t1x), nmax(t0y, t1y)), nmax(t0z, t1z));
+  *sel = nmax(t_near, 0.f);
+  return (t_near <= t_far) && (t_far >= 0.f) && (*sel < bound);
+}
+
+// Woop unit-triangle test of lane l of a cluster staged in shared memory
+// as [13][128].  NESTED folds the affine rows right to left (the per-group
+// walk's order), else left to right (the tiled walk's).  About 24
+// multiply-adds per (ray, triangle) plus one division.
+template <bool NESTED>
+__device__ __forceinline__ bool woop_eval(const float* __restrict__ w, int l,
+                                          const Ray& r, float* t_out) {
+  float q[WOOP_ROWS];
+#pragma unroll
+  for (int k = 0; k < WOOP_ROWS; ++k) q[k] = w[k * CLUSTER + l];
+  float zo, zd, xo, xd, yo, yd;
+  if (NESTED) {
+    zo = r.ox * q[8] + (r.oy * q[9] + (r.oz * q[10] + q[11]));
+    zd = r.dx * q[8] + (r.dy * q[9] + r.dz * q[10]);
+    xo = r.ox * q[0] + (r.oy * q[1] + (r.oz * q[2] + q[3]));
+    xd = r.dx * q[0] + (r.dy * q[1] + r.dz * q[2]);
+    yo = r.ox * q[4] + (r.oy * q[5] + (r.oz * q[6] + q[7]));
+    yd = r.dx * q[4] + (r.dy * q[5] + r.dz * q[6]);
+  } else {
+    zo = r.ox * q[8] + r.oy * q[9] + r.oz * q[10] + q[11];
+    zd = r.dx * q[8] + r.dy * q[9] + r.dz * q[10];
+    xo = r.ox * q[0] + r.oy * q[1] + r.oz * q[2] + q[3];
+    xd = r.dx * q[0] + r.dy * q[1] + r.dz * q[2];
+    yo = r.ox * q[4] + r.oy * q[5] + r.oz * q[6] + q[7];
+    yd = r.dx * q[4] + r.dy * q[5] + r.dz * q[6];
+  }
+  const bool parallel = fabsf(zd) <= q[12];
+  const float den = parallel ? 1.f : zd;
+  // Parity trap 2 (reciprocal): exact IEEE 1/den, then the TPU kernel's
+  // Newton step in its operation order.
+  float inv = 1.f / den;
+  inv = inv * (2.f - den * inv);
+  const float t = -zo * inv;
+  const float u = xo + t * xd;
+  const float v = yo + t * yd;
+  const float m = nmin(nmin(u, v), (EDGE_HI - u) - v);
+  *t_out = t;
+  return (m >= -EDGE_EPS) && !parallel && (t > T_EPS);
+}
+
+// Stage one cluster's 13 Woop rows ([16, 128] block, row-major) into
+// shared memory; callers synchronise around it.
+__device__ __forceinline__ void stage_cluster(float* __restrict__ w_sh,
+                                              const float* __restrict__ woop,
+                                              int c) {
+  const float* src = woop + (size_t)c * WOOP_STRIDE;
+  for (int i = threadIdx.x; i < WOOP_ROWS * CLUSTER; i += blockDim.x)
+    w_sh[i] = src[i];
+}
+
+}  // namespace srt

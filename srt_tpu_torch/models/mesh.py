@@ -1,0 +1,352 @@
+"""Triangle-mesh scenes: device tables, traversal strategies, shading
+hookup (counterpart of ``srt_tpu/models/mesh.py``).
+
+Traversal methods:
+
+* ``"walk"`` — the walk schedule of ``ops/traversal.model_hit``: the CUDA
+  kernels on CUDA tensors, their plain versions on CPU tensors.  The
+  port's default on both devices.
+* ``"dense"`` — every ray against every triangle (Moller-Trumbore, in ray
+  chunks): the independent traversal baseline.
+
+Textured scenes (an atlas) and the BVH stack strategy are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+
+from srt_tpu_torch.models.pathtracer import Hit
+from srt_tpu_torch.ops import intersect, traversal, vec
+from srt_tpu_torch.scene import Materials
+from srt_tpu_torch.utils.flatten import FlatScene
+
+MISS = -1
+# ``TriangleToSupportedMat`` constants (raytrace_utils.glsl:169-173).
+MESH_METALNESS = 0.1
+ROUGHNESS_EPS = 1e-7
+# Rays x triangles per dense-strategy chunk.
+DENSE_CHUNK = 1 << 22
+
+ARRAY_FIELDS = (
+    "frames", "node_min", "node_max", "node_first", "node_count",
+    "tri_v0", "tri_v1", "tri_v2", "uv0", "uv1", "uv2", "tri_mat",
+    "tri_n0", "tri_n1", "tri_n2", "mat_diffuse", "mat_specular",
+    "mat_emissive", "mat_specular_ex", "mat_use_texture", "mat_tex_index",
+    "woop", "cluster_min", "cluster_max", "tri_vidx", "positions", "tri_adj",
+)
+STATIC_FIELDS = (
+    "mip_lod_scale", "model_first_node", "model_first_tri",
+    "model_tri_count", "model_padded_tri_count", "num_triangles",
+    "stack_depth", "max_leaf", "stale_node_bounds",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshScene:
+    """Device-resident flattened multi-model scene; the field names and
+    layouts are those of the JAX ``MeshScene`` (``woop`` is the walk
+    kernels' [C, 16, 128] table, ``cluster_min``/``max`` [C, 3])."""
+
+    frames: torch.Tensor       # [B, 4, 4] world->model
+    node_min: torch.Tensor     # [Nn, 3]
+    node_max: torch.Tensor
+    node_first: torch.Tensor   # [Nn] int32
+    node_count: torch.Tensor   # [Nn] int32
+    tri_v0: torch.Tensor       # [T, 3]
+    tri_v1: torch.Tensor
+    tri_v2: torch.Tensor
+    uv0: torch.Tensor          # [T, 2]
+    uv1: torch.Tensor
+    uv2: torch.Tensor
+    tri_mat: torch.Tensor      # [T] int32
+    tri_n0: torch.Tensor       # [T, 3] shading normals (zero = geometric)
+    tri_n1: torch.Tensor
+    tri_n2: torch.Tensor
+    mat_diffuse: torch.Tensor  # [M, 3]
+    mat_specular: torch.Tensor
+    mat_emissive: torch.Tensor
+    mat_specular_ex: torch.Tensor  # [M]
+    mat_use_texture: torch.Tensor  # [M] bool
+    mat_tex_index: torch.Tensor    # [M] int32
+    woop: Optional[torch.Tensor] = None
+    cluster_min: Optional[torch.Tensor] = None
+    cluster_max: Optional[torch.Tensor] = None
+    tri_vidx: Optional[torch.Tensor] = None
+    positions: Optional[torch.Tensor] = None
+    tri_adj: Optional[torch.Tensor] = None
+    mip_lod_scale: float = 0.0
+    model_first_node: tuple = (0,)
+    model_first_tri: tuple = (0,)
+    model_tri_count: tuple = (0,)
+    model_padded_tri_count: tuple = (0,)
+    num_triangles: int = 0
+    stack_depth: int = 34
+    max_leaf: int = 2
+    stale_node_bounds: bool = False
+
+    @property
+    def num_models(self) -> int:
+        return len(self.model_first_node)
+
+    @property
+    def device(self) -> torch.device:
+        return self.frames.device
+
+
+def upload(scene: FlatScene, device="cpu", atlas=None) -> MeshScene:
+    """Host FlatScene -> device MeshScene.  A cluster-aligned scene
+    (flatten_models pad_to=128) also gets the walk tables: the Woop table
+    [C, 16, 128] and the cluster AABBs."""
+    if atlas is not None:
+        raise NotImplementedError("textured scenes are not ported yet: "
+                                  "ROADMAP.md queue A")
+    t_total = scene.tri_v0.shape[0]
+    firsts = [int(x) for x in scene.model_first_tri]
+    padded_counts = tuple(
+        (firsts[i + 1] if i + 1 < len(firsts) else t_total) - firsts[i]
+        for i in range(len(firsts)))
+
+    arrays = {f: getattr(scene, f) for f in ARRAY_FIELDS
+              if f not in ("woop", "cluster_min", "cluster_max")}
+    cl = traversal.CLUSTER
+    if t_total > 0 and t_total % cl == 0 and all(
+            c % cl == 0 for c in padded_counts):
+        w = traversal.build_woop(scene.tri_v0, scene.tri_v1, scene.tri_v2)
+        w16 = np.zeros((16, t_total), np.float32)
+        w16[:13] = w
+        arrays["woop"] = w16.reshape(16, t_total // cl, cl).transpose(
+            1, 0, 2).copy()
+        arrays["cluster_min"], arrays["cluster_max"] = \
+            traversal.build_clusters(scene.tri_v0, scene.tri_v1,
+                                     scene.tri_v2)
+    static = dict(
+        model_first_node=tuple(int(x) for x in scene.model_first_node),
+        model_first_tri=tuple(firsts),
+        model_tri_count=tuple(int(x) for x in scene.model_tri_count),
+        model_padded_tri_count=padded_counts,
+        num_triangles=int(scene.num_triangles),
+        stack_depth=int(scene.max_depth) + 2,
+        max_leaf=int(scene.node_count.max()),
+    )
+    return scene_from_arrays(arrays, static, device)
+
+
+def scene_from_arrays(d: dict, static: dict, device) -> MeshScene:
+    """Build a MeshScene from numpy arrays keyed by field name (for example
+    ``np.asarray`` of each leaf of a JAX ``MeshScene``) and its static
+    fields.  Missing or None optional fields stay None."""
+    if d.get("atlas") is not None:
+        raise NotImplementedError("textured scenes are not ported yet: "
+                                  "ROADMAP.md queue A")
+    arrays = {}
+    for f in ARRAY_FIELDS:
+        x = d.get(f)
+        arrays[f] = None if x is None else torch.tensor(
+            np.asarray(x), device=device)
+    return MeshScene(**arrays, **{k: static[k] for k in STATIC_FIELDS
+                                  if k in static})
+
+
+def transform_rays(frame, origins, dirs):
+    """World ray -> model space: origin as a point, direction as a vector
+    (no normalize).  origins/dirs: [3, N]."""
+    rot = frame[:3, :3]
+    return rot @ origins + frame[:3, 3][:, None], rot @ dirs
+
+
+def _dense_model_hit(scene: MeshScene, b: int, origins, dirs, t_best):
+    """All-triangles sweep for model ``b`` in ray chunks; returns (t,
+    tri_idx, u, v) with t = inf and an arbitrary index on a miss."""
+    lo = scene.model_first_tri[b]
+    hi = lo + scene.model_tri_count[b]
+    o_m, d_m = transform_rays(scene.frames[b], origins, dirs)
+    n = origins.shape[1]
+    t_best = torch.as_tensor(t_best, dtype=torch.float32,
+                             device=origins.device).expand(n)
+    v0, v1, v2 = scene.tri_v0[lo:hi], scene.tri_v1[lo:hi], scene.tri_v2[lo:hi]
+    step = max(1, DENSE_CHUNK // max(1, hi - lo))
+    outs = []
+    for r0 in range(0, n, step):
+        t_all, u_all, v_all = intersect.moller_trumbore(
+            o_m[:, r0:r0 + step].T, d_m[:, r0:r0 + step].T, v0, v1, v2)
+        t_all = torch.where(t_all < t_best[r0:r0 + step, None], t_all,
+                            torch.full_like(t_all, float("inf")))
+        k = torch.argmin(t_all, dim=1, keepdim=True)
+        outs.append((t_all.gather(1, k)[:, 0], (k[:, 0] + lo).to(torch.int32),
+                     u_all.gather(1, k)[:, 0], v_all.gather(1, k)[:, 0]))
+    return tuple(torch.cat(x) for x in zip(*outs))
+
+
+def _tri_record(scene: MeshScene) -> torch.Tensor:
+    """Everything shading needs per triangle, one [T, 36] table: v0 v1 v2
+    (0-8), uv0 uv1 uv2 (9-14), Kd (15-17), Ks (18-20), Ns (21), use_tex
+    (22), tex_idx (23), Ke (24-26), shading normals n0 n1 n2 (27-35)."""
+    m = scene.tri_mat.long()
+    return torch.cat([
+        scene.tri_v0, scene.tri_v1, scene.tri_v2,
+        scene.uv0, scene.uv1, scene.uv2,
+        scene.mat_diffuse[m], scene.mat_specular[m],
+        scene.mat_specular_ex[m][:, None],
+        scene.mat_use_texture[m][:, None].to(torch.float32),
+        scene.mat_tex_index[m][:, None].to(torch.float32),
+        scene.mat_emissive[m],
+        scene.tri_n0, scene.tri_n1, scene.tri_n2,
+    ], dim=1)
+
+
+def _record_material(rec_t) -> Materials:
+    """``TriangleToSupportedMat`` (raytrace_utils.glsl:140-175) from the
+    packed record [36, N]: Kd albedo, roughness 1/(Ns + eps), metalness
+    0.1, use_spec true."""
+    n = rec_t.shape[1]
+    dev = rec_t.device
+    return Materials(
+        albedo=rec_t[15:18],
+        specular=rec_t[18:21],
+        roughness=1.0 / (rec_t[21] + ROUGHNESS_EPS),
+        metalness=torch.full((n,), MESH_METALNESS, dtype=torch.float32,
+                             device=dev),
+        use_spec=torch.ones((n,), dtype=torch.bool, device=dev),
+    )
+
+
+def n_superclusters(scene: MeshScene) -> int:
+    """Superclusters of the walk tables (1 for a scene without them)."""
+    if scene.woop is None:
+        return 1
+    return -(-scene.woop.shape[0] // traversal.SUPER)
+
+
+def default_kernel_tile(scene: MeshScene) -> int:
+    """The tiled walk's rays per tile when a schedule names none: 128
+    above eight superclusters, else 512."""
+    return 128 if n_superclusters(scene) > 8 else traversal.DEFAULT_TILE
+
+
+def mesh_hit_fn(scene: MeshScene, method: str = "walk", kernel_tile: int = 0,
+                binned=False, binned_anyhit=None, plain: bool = False):
+    """The integrator's closest-hit callable ``hit_fn(origins, dirs, t_min,
+    t_max, any_hit=False) -> Hit`` for a mesh scene: per-model frame
+    transform, traversal bounded by the running closest t across models,
+    exact Moller-Trumbore refine of the winner, smooth-normal blend, the
+    normal flipped to face the ray, and the winning triangle's material.
+
+    ``kernel_tile`` is the tiled walk's rays per tile (0:
+    ``default_kernel_tile``); ``binned`` selects the closest-hit walk
+    (False = tiled, ``"pg2:G:W"`` = per-group) and ``binned_anyhit`` the
+    shadow-ray walk (None = same).  ``plain`` runs the kernels' plain
+    versions on CUDA tensors (comparison runs only).
+    """
+    if method == "walk":
+        if scene.woop is None:
+            raise ValueError("the walk needs flatten_models(..., pad_to=128)")
+        kernel_tile = kernel_tile or default_kernel_tile(scene)
+        model_hit = functools.partial(traversal.model_hit, tile=kernel_tile,
+                                      binned=binned, plain=plain)
+        model_hit_any = functools.partial(
+            traversal.model_hit, tile=kernel_tile,
+            binned=binned if binned_anyhit is None else binned_anyhit,
+            plain=plain)
+    elif method == "dense":
+        model_hit = model_hit_any = None
+    elif method == "bvh":
+        raise NotImplementedError("the BVH stack strategy is not ported: "
+                                  "ROADMAP.md queue A")
+    else:
+        raise ValueError(f"unknown traversal method: {method}")
+    record = _tri_record(scene)
+
+    def hit_fn(origins, dirs, t_min, t_max, any_hit=False):
+        n = origins.shape[1]
+        dev = origins.device
+        best_t = torch.as_tensor(t_max, dtype=torch.float32,
+                                 device=dev).expand(n).clone()
+        best_i = torch.full((n,), MISS, dtype=torch.int32, device=dev)
+        best_u = torch.zeros((n,), dtype=torch.float32, device=dev)
+        best_v = torch.zeros((n,), dtype=torch.float32, device=dev)
+        best_b = torch.zeros((n,), dtype=torch.int32, device=dev)
+        for b in range(scene.num_models):
+            if method == "walk":
+                # Candidates only; the exact refine runs once below.
+                mh = model_hit_any if any_hit else model_hit
+                t, i, u, v = mh(scene, b, origins, dirs, best_t,
+                                any_hit=any_hit, refine=False, t_min=t_min)
+            else:
+                t, i, u, v = _dense_model_hit(scene, b, origins, dirs, best_t)
+            better = (i != MISS) & (t < best_t) & (t > t_min)
+            best_t = torch.where(better, t, best_t)
+            best_i = torch.where(better, i, best_i)
+            best_u = torch.where(better, u, best_u)
+            best_v = torch.where(better, v, best_v)
+            best_b = torch.where(better, torch.full_like(best_b, b), best_b)
+
+        hit = best_i != MISS
+        one = torch.ones_like(best_t)
+        if any_hit:
+            # Occlusion only: no shading data.
+            p = origins + torch.where(hit, best_t, one)[None, :] * dirs
+            zeros = torch.zeros_like(p)
+            return Hit(hit=hit, t=best_t, p=p, normal=zeros, mat=Materials(
+                albedo=zeros, specular=zeros, roughness=one,
+                metalness=torch.zeros_like(best_t),
+                use_spec=torch.zeros_like(hit)))
+
+        idx = torch.clamp_min(best_i, 0)
+        rec_t = record[idx.long()].T                        # [36, N]
+        v0, v1, v2 = rec_t[0:3], rec_t[3:6], rec_t[6:9]
+        e1 = v1 - v0
+        e2 = v2 - v0
+
+        o_m = d_m = None
+        for b in range(scene.num_models):
+            o_b, d_b = transform_rays(scene.frames[b], origins, dirs)
+            if o_m is None:
+                o_m, d_m = o_b, d_b
+            else:
+                m = (best_b == b)[None, :]
+                o_m = torch.where(m, o_b, o_m)
+                d_m = torch.where(m, d_b, d_m)
+
+        if method == "walk":
+            t_r, u_r, v_r = intersect.mt_refine(o_m, d_m, v0, e1, e2)
+            zero = torch.zeros_like(best_t)
+            best_t = torch.where(hit, t_r, best_t)
+            best_u = torch.where(hit, u_r, zero)
+            best_v = torch.where(hit, v_r, zero)
+
+        # Smooth shading normal, falling back to the geometric normal
+        # wherever the interpolated vector is ~zero.
+        n_geom = vec.normalize(vec.cross(e1, e2))
+        n_sm = ((1.0 - best_u - best_v)[None, :] * rec_t[27:30]
+                + best_u[None, :] * rec_t[30:33]
+                + best_v[None, :] * rec_t[33:36])
+        sm_len2 = (n_sm * n_sm).sum(0)
+        use_sm = sm_len2 > 1e-12
+        inv_sm = torch.rsqrt(torch.where(use_sm, sm_len2, one))
+        n_model = torch.where(use_sm[None, :], n_sm * inv_sm[None, :], n_geom)
+
+        # Normal to world via the transpose of world->model.
+        normal = None
+        for b in range(scene.num_models):
+            n_b = scene.frames[b][:3, :3].T @ n_model
+            normal = n_b if normal is None else torch.where(
+                (best_b == b)[None, :], n_b, normal)
+        normal = vec.normalize(normal)
+
+        p = origins + torch.where(hit, best_t, one)[None, :] * dirs
+        facing = (normal * dirs).sum(0) < 0.0
+        normal = torch.where(facing[None, :], normal, -normal)
+
+        emitted = torch.where(hit[None, :], rec_t[24:27],
+                              torch.zeros_like(rec_t[24:27]))
+        return Hit(hit=hit, t=best_t, p=p, normal=normal,
+                   mat=_record_material(rec_t), emitted=emitted,
+                   tri=torch.where(hit, idx, torch.full_like(idx, -1)))
+
+    return hit_fn

@@ -1,0 +1,681 @@
+"""Cluster-culled Woop traversal: tables, the four walk kernels' wrappers
+and their plain PyTorch versions (counterpart of
+``srt_tpu/ops/traversal_pallas.py``).
+
+Triangles stay in BVH order, chunked into clusters of 128; 16 consecutive
+clusters form a supercluster ("super").  Two walks carry the render path:
+
+* the **tiled walk** (primary rays): ``cull`` (B1) slab-tests each ray
+  tile against every super and writes a near-to-far list of the supers the
+  tile needs; ``intersect`` (B2) walks that list with a shrinking
+  tile-best-t gate, a per-super 16-cluster slab gate and a Woop
+  unit-triangle evaluation of every admitted cluster;
+* the **per-group walk "pg2"** (later bounces, shadow rays): ``cull_pg2``
+  (B3) ORs per-ray cluster occupancy over groups of G rays into 16-bit
+  words per super, listed in ascending super index; ``pgwalk2`` (B4)
+  evaluates exactly those clusters for the group's rays.
+
+Each wrapper runs its hand-written CUDA kernel (``srt_tpu_torch/csrc``) on
+CUDA tensors and its plain version on CPU tensors.  ``plain=True`` forces
+the plain version on CUDA tensors too; it exists for kernel-vs-plain
+comparisons.  There is no fallback: a kernel that fails to build or launch
+raises.  Each kernel launch adds one to ``launch_counts[name]``.
+
+The kernels only select the winning triangle per ray (fp32 candidate
+search with an ``EDGE_EPS`` slop at shared edges); ``model_hit`` re-derives
+exact (t, u, v) for the winner with one Moller-Trumbore evaluation.
+
+Winner rule: the lexicographic minimum of (t, triangle index) over the
+candidates a walk evaluates, so exact-t ties go to the smallest index.
+The TPU's tiled walk instead gives same-lane cross-super ties to the
+nearest-entry super (ROADMAP.md section C).
+
+Parity notes (named where they apply):
+
+* NaN: min/max propagate NaN as ``jnp.minimum``/``maximum`` do, so NaN
+  boxes (padding) and on-boundary axis-parallel rays (0 * inf) fail every
+  slab test.  ``torch.minimum``/``maximum`` propagate NaN; the CUDA
+  kernels use explicit NaN-propagating helpers.
+* Reciprocal: exact ``1 / den`` followed by the TPU kernel's Newton step,
+  in the same operation order, built without FMA contraction, so a kernel
+  and its plain version give bit-equal candidate t.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from srt_tpu_torch.ops.intersect import MT_HIT_EPS, MT_PARALLEL_EPS, mt_refine
+
+CLUSTER = 128          # triangles per cluster
+SUPER = 16             # clusters per supercluster (one 16-bit word)
+DEFAULT_TILE = 512     # rays per tiled-walk tile
+DEN_EPS_SCALE = MT_PARALLEL_EPS
+T_EPS = MT_HIT_EPS
+EDGE_EPS = 1e-4        # candidate acceptance slop at shared edges
+BIG = 3.0e37           # finite miss sentinel (inf would NaN in 0*inf)
+MISS_IDX = 2 ** 30     # "no candidate yet" triangle index
+
+# Kernel launches on CUDA tensors, by wrapper; plain-version calls never
+# count.  ``reset_launch_counts`` zeroes them.
+launch_counts = {"cull": 0, "intersect": 0, "cull_pg2": 0, "pgwalk2": 0}
+
+# Memory bound of the plain versions' broadcast temporaries (elements).
+_PLAIN_CHUNK = 1 << 23
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# Host-side precompute (numpy; same results as the JAX package)
+# ---------------------------------------------------------------------------
+
+def build_woop(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray) -> np.ndarray:
+    """Per-triangle world->unit-triangle affine transforms, [13, T] float32:
+    rows 0-3 the x-row (3 linear coefficients + translation), 4-7 the
+    y-row, 8-11 the z-row, row 12 the |det|-scaled parallel epsilon
+    (+inf for degenerate triangles).  Computed in float64."""
+    v0 = np.asarray(v0, np.float64)
+    e1 = np.asarray(v1, np.float64) - v0
+    e2 = np.asarray(v2, np.float64) - v0
+    n = np.cross(e1, e2)
+    t_count = v0.shape[0]
+
+    a = np.stack([e1, e2, n], axis=-1)
+    det = np.linalg.det(a)
+    ok = np.abs(det) > 1e-18
+    a_safe = np.where(ok[:, None, None], a, np.eye(3)[None])
+    a_inv = np.linalg.inv(a_safe)
+    trans = -np.einsum("tij,tj->ti", a_inv, v0)
+
+    out = np.zeros((13, t_count), np.float64)
+    for r in range(3):
+        out[4 * r + 0] = a_inv[:, r, 0]
+        out[4 * r + 1] = a_inv[:, r, 1]
+        out[4 * r + 2] = a_inv[:, r, 2]
+        out[4 * r + 3] = trans[:, r]
+    n2 = np.einsum("ti,ti->t", n, n)
+    out[12] = np.where(ok, DEN_EPS_SCALE / np.maximum(n2, 1e-30), np.inf)
+    return out.astype(np.float32)
+
+
+def build_clusters(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
+                   cluster: int = CLUSTER):
+    """AABBs of consecutive ``cluster``-triangle chunks: (cmin [C, 3],
+    cmax [C, 3]).  T must be a multiple of ``cluster``."""
+    t_count = v0.shape[0]
+    if t_count % cluster:
+        raise ValueError("pad triangles to the cluster size first")
+    c = t_count // cluster
+
+    def chunk(arr):
+        return np.asarray(arr, np.float32).reshape(c, cluster, 3)
+
+    lo = np.minimum(np.minimum(chunk(v0).min(1), chunk(v1).min(1)),
+                    chunk(v2).min(1))
+    hi = np.maximum(np.maximum(chunk(v0).max(1), chunk(v1).max(1)),
+                    chunk(v2).max(1))
+    return lo, hi
+
+
+# ---------------------------------------------------------------------------
+# Shared arithmetic of the plain versions
+# ---------------------------------------------------------------------------
+
+def _ray_cols(rays8):
+    """rays8 [..., 8] -> eight [..., 1] columns (ox oy oz dx dy dz t_max
+    t_lo)."""
+    return [rays8[..., q:q + 1] for q in range(8)]
+
+
+def _slab(lo, hi, o, inv, fma_form: bool):
+    """Slab test against boxes (lo/hi: 3 tensors each) for rays (o/inv: 3
+    tensors each).  ``fma_form`` is the pg2 cull's ``box * inv - o * inv``
+    (``o`` then holds ``o * inv``); otherwise ``(box - o) * inv``.
+    Returns (t_near, t_far, sel), NaN-propagating (parity note NaN)."""
+    if fma_form:
+        t0 = [lo[a] * inv[a] - o[a] for a in range(3)]
+        t1 = [hi[a] * inv[a] - o[a] for a in range(3)]
+    else:
+        t0 = [(lo[a] - o[a]) * inv[a] for a in range(3)]
+        t1 = [(hi[a] - o[a]) * inv[a] for a in range(3)]
+    mn = [torch.minimum(t0[a], t1[a]) for a in range(3)]
+    mx = [torch.maximum(t0[a], t1[a]) for a in range(3)]
+    t_near = torch.maximum(torch.maximum(mn[0], mn[1]), mn[2])
+    t_far = torch.minimum(torch.minimum(mx[0], mx[1]), mx[2])
+    # Entry bound max(t_near, 0), not exit-if-inside: a box entered from
+    # inside can still hold candidates nearer than its exit.
+    sel = torch.clamp_min(t_near, 0.0)
+    return t_near, t_far, sel
+
+
+def _woop_candidates(o, d, w, nested: bool):
+    """Woop unit-triangle evaluation.  o/d: 3 ray tensors each [..., R, 1];
+    w: [..., 13, 128] rows.  ``nested`` folds the affine rows right to
+    left (the per-group walk's order), else left to right (the tiled
+    walk's).  Returns (t, valid) [..., R, 128]."""
+    def r(q):
+        return w[..., q:q + 1, :]
+
+    def affine(q):
+        if nested:
+            ro = o[0] * r(q) + (o[1] * r(q + 1) + (o[2] * r(q + 2) + r(q + 3)))
+            rd = d[0] * r(q) + (d[1] * r(q + 1) + d[2] * r(q + 2))
+        else:
+            ro = o[0] * r(q) + o[1] * r(q + 1) + o[2] * r(q + 2) + r(q + 3)
+            rd = d[0] * r(q) + d[1] * r(q + 1) + d[2] * r(q + 2)
+        return ro, rd
+
+    zo, zd = affine(8)
+    parallel = zd.abs() <= r(12)
+    den = torch.where(parallel, torch.ones_like(zd), zd)
+    # Parity note Reciprocal: exact 1/den, then the TPU's Newton step.
+    inv = 1.0 / den
+    inv = inv * (2.0 - den * inv)
+    t = -zo * inv
+    xo, xd = affine(0)
+    u = xo + t * xd
+    yo, yd = affine(4)
+    v = yo + t * yd
+    m = torch.minimum(torch.minimum(u, v), (1.0 + 2 * EDGE_EPS) - u - v)
+    valid = (m >= -EDGE_EPS) & ~parallel & (t > T_EPS)
+    return t, valid
+
+
+def _lex_min_lanes(t, valid, idx):
+    """Per ray, the lexicographic min of (t, idx) over the 128 lanes of
+    valid candidates: (t_min [..., R], i_min [..., R]); (inf, MISS_IDX)
+    when no lane is valid."""
+    tc = torch.where(valid, t, torch.full_like(t, float("inf")))
+    t_min = tc.amin(-1)
+    at_min = valid & (tc == t_min[..., None])
+    i_min = torch.where(at_min, idx, torch.full_like(idx, MISS_IDX)).amin(-1)
+    return t_min, i_min
+
+
+def _lex_merge(bt, bi, t, i):
+    better = (t < bt) | ((t == bt) & (i < bi))
+    return torch.where(better, t, bt), torch.where(better, i, bi)
+
+
+# ---------------------------------------------------------------------------
+# B1: tiled-walk cull
+# ---------------------------------------------------------------------------
+
+def cull_plain(rays8, sbounds, tile: int):
+    """Plain version of B1.  rays8 [Np, 8]; sbounds [8, S] (rows min xyz,
+    max xyz, pad).  Returns (clist [Np/tile, S] int32, elist [Np/tile, S]
+    f32, counts [Np/tile, 1] int32): per tile, the supers any ray enters
+    before its t_max, ordered by (tile-min entry distance, index); unused
+    slots hold 0."""
+    n_tiles = rays8.shape[0] // tile
+    s = sbounds.shape[1]
+    lo = [sbounds[a] for a in range(3)]
+    hi = [sbounds[3 + a] for a in range(3)]
+    parts = []
+    step = max(1, _PLAIN_CHUNK // (tile * s))
+    for t0 in range(0, n_tiles, step):
+        rays = rays8[t0 * tile:(t0 + step) * tile]
+        c = _ray_cols(rays)
+        inv = [1.0 / c[3 + a] for a in range(3)]
+        t_near, t_far, sel = _slab(lo, hi, c[0:3], inv, fma_form=False)
+        hit = (t_near <= t_far) & (t_far >= 0.0) & (sel < c[6])
+        e = torch.where(hit, sel, torch.full_like(sel, BIG))
+        parts.append(e.view(-1, tile, s).amin(1))
+    e = torch.cat(parts)
+    counts = (e < BIG).sum(1, dtype=torch.int32)[:, None]
+    e_sorted, order = torch.sort(e, dim=1, stable=True)   # ties by index
+    used = torch.arange(s, device=e.device)[None, :] < counts
+    clist = torch.where(used, order, torch.zeros_like(order)).to(torch.int32)
+    elist = torch.where(used, e_sorted, torch.zeros_like(e_sorted))
+    return clist, elist, counts
+
+
+def cull(rays8, sbounds, tile: int, plain: bool = False):
+    """B1 (replaces ``_cull_kernel``, traversal_pallas.py:134)."""
+    if plain or _on_cpu(rays8):
+        return cull_plain(rays8, sbounds, tile)
+    _check_tile(tile)
+    n_tiles = rays8.shape[0] // tile
+    s = sbounds.shape[1]
+    dev = rays8.device
+    clist = torch.empty((n_tiles, s), dtype=torch.int32, device=dev)
+    elist = torch.empty((n_tiles, s), dtype=torch.float32, device=dev)
+    counts = torch.empty((n_tiles, 1), dtype=torch.int32, device=dev)
+    _launch("cull", _f32(rays8), _f32(sbounds), n_tiles, tile, s,
+            clist, elist, counts)
+    return clist, elist, counts
+
+
+# ---------------------------------------------------------------------------
+# B2: tiled walk
+# ---------------------------------------------------------------------------
+
+def intersect_plain(counts, clist, elist, rays8, cb, woop, tile: int,
+                    any_hit: bool = False):
+    """Plain version of B2.  Per tile, walk the listed supers in order;
+    skip a super unless its entry is below the tile gate (the max over the
+    tile's rays of their best t; any-hit: also until every ray is
+    resolved).  A processed super admits each of its 16 clusters that some
+    ray of the tile enters before its current best t, and every admitted
+    cluster's 128 triangles are evaluated.  Returns (t [Np, 1] f32 — best
+    candidate t, t_max on a miss; i [Np, 1] int32 — local triangle id or
+    -1)."""
+    npad = rays8.shape[0]
+    n_tiles = npad // tile
+    dev = rays8.device
+    r = rays8.view(n_tiles, tile, 8)
+    o = [r[..., a:a + 1] for a in range(3)]
+    d = [r[..., 3 + a:4 + a] for a in range(3)]
+    inv = [1.0 / x for x in d]
+    t_max = r[..., 6]
+    t_lo = r[..., 7:8]
+    bt = t_max.clone()
+    bi = torch.full((n_tiles, tile), MISS_IDX, dtype=torch.int32, device=dev)
+    tbm = torch.full((n_tiles,), BIG, dtype=torch.float32, device=dev)
+    done = torch.zeros((n_tiles,), dtype=torch.bool, device=dev)
+    cnt = counts[:, 0]
+    lane = torch.arange(CLUSTER, dtype=torch.int32, device=dev)
+    for j in range(clist.shape[1]):
+        gate = (j < cnt) & (elist[:, j] < tbm)
+        if any_hit:
+            gate = gate & ~done
+        tiles = gate.nonzero()[:, 0]
+        if tiles.numel() == 0:
+            continue
+        s_idx = clist[tiles, j].long()
+        b = cb[s_idx]                                        # [m, 8, 16]
+        ot = [x[tiles] for x in o]
+        it = [x[tiles] for x in inv]
+        t_near, t_far, sel = _slab([b[:, q:q + 1, :] for q in range(3)],
+                                   [b[:, q:q + 1, :] for q in range(3, 6)],
+                                   ot, it, fma_form=False)
+        enters = (t_near <= t_far) & (t_far >= 0.0) & (sel < bt[tiles][..., None])
+        occ16 = enters.any(1)                                # [m, 16]
+        for k in range(SUPER):
+            sub = occ16[:, k].nonzero()[:, 0]
+            step = max(1, _PLAIN_CHUNK // (tile * CLUSTER))
+            for c0 in range(0, sub.numel(), step):
+                sk = sub[c0:c0 + step]
+                tt = tiles[sk]
+                c = s_idx[sk] * SUPER + k
+                t, valid = _woop_candidates([x[tt] for x in o],
+                                            [x[tt] for x in d],
+                                            woop[c, :13], nested=False)
+                if any_hit:
+                    valid = valid & (t > t_lo[tt])
+                idx = (c.to(torch.int32) * CLUSTER)[:, None, None] + lane
+                t_c, i_c = _lex_min_lanes(t, valid, idx)
+                bt[tt], bi[tt] = _lex_merge(bt[tt], bi[tt], t_c, i_c)
+        tbm[tiles] = bt[tiles].amax(1)
+        if any_hit:
+            done[tiles] = ((bt[tiles] < t_max[tiles])
+                           | (t_max[tiles] <= 0.0)).all(1)
+    out_i = torch.where(bt < t_max, bi, torch.full_like(bi, -1))
+    return bt.reshape(npad, 1), out_i.reshape(npad, 1)
+
+
+def intersect(counts, clist, elist, rays8, cb, woop, tile: int,
+              any_hit: bool = False, plain: bool = False):
+    """B2 (replaces ``_intersect_kernel`` resident mode,
+    traversal_pallas.py:1061).  cb [S, 8, 16] per-super cluster boxes;
+    woop [C, 16, 128]."""
+    if plain or _on_cpu(rays8):
+        return intersect_plain(counts, clist, elist, rays8, cb, woop, tile,
+                               any_hit)
+    _check_tile(tile)
+    npad = rays8.shape[0]
+    out_t = torch.empty((npad, 1), dtype=torch.float32, device=rays8.device)
+    out_i = torch.empty((npad, 1), dtype=torch.int32, device=rays8.device)
+    _launch("intersect", _i32(counts), _i32(clist), _f32(elist),
+            clist.shape[1], _f32(rays8), _f32(cb), _f32(woop),
+            npad // tile, tile, int(any_hit), out_t, out_i)
+    return out_t, out_i
+
+
+# ---------------------------------------------------------------------------
+# B3: per-group cull
+# ---------------------------------------------------------------------------
+
+def cull_pg2_plain(rays8, cb8, s_count: int, group: int):
+    """Plain version of B3.  cb8 [8, >= 16*S] per-cluster boxes (rows min
+    xyz, max xyz, pad; NaN boxes for padding clusters).  Per group of
+    ``group`` consecutive rays: clist [Np/G, S] int32 (active supers,
+    ascending), bits [Np/G, S] int32 (their 16 cluster-occupancy bits),
+    counts [Np/G, 1] int32; unused slots hold 0."""
+    npad = rays8.shape[0]
+    n_cl = s_count * SUPER
+    lo = [cb8[a, :n_cl] for a in range(3)]
+    hi = [cb8[3 + a, :n_cl] for a in range(3)]
+    shifts = torch.arange(SUPER, dtype=torch.int32, device=rays8.device)
+    parts = []
+    step = max(group, (_PLAIN_CHUNK // n_cl) // group * group)
+    for r0 in range(0, npad, step):
+        c = _ray_cols(rays8[r0:r0 + step])
+        inv = [1.0 / c[3 + a] for a in range(3)]
+        oi = [c[a] * inv[a] for a in range(3)]
+        t_near, t_far, sel = _slab(lo, hi, oi, inv, fma_form=True)
+        hit = (t_near <= t_far) & (t_far >= 0.0) & (sel < c[6])
+        occ = hit.view(-1, group, s_count, SUPER).any(1)
+        parts.append((occ.to(torch.int32) << shifts).sum(-1, dtype=torch.int32))
+    bits = torch.cat(parts)                                  # [ng, S]
+    active = bits != 0
+    counts = active.sum(1, dtype=torch.int32)[:, None]
+    order = torch.sort((~active).to(torch.int8), dim=1, stable=True).indices
+    used = torch.arange(s_count, device=bits.device)[None, :] < counts
+    zero = torch.zeros_like(bits)
+    clist = torch.where(used, order.to(torch.int32), zero)
+    bits_out = torch.where(used, bits.gather(1, order), zero)
+    return clist, bits_out, counts
+
+
+def cull_pg2(rays8, cb8, s_count: int, group: int, plain: bool = False):
+    """B3 (replaces ``_cull_pg2_kernel``, traversal_pallas.py:527)."""
+    _check_group(group, rays8.shape[0])
+    if plain or _on_cpu(rays8):
+        return cull_pg2_plain(rays8, cb8, s_count, group)
+    if cb8.shape[1] < s_count * SUPER:
+        raise ValueError(f"cb8 has {cb8.shape[1]} clusters, need "
+                         f"{s_count * SUPER}")
+    ng = rays8.shape[0] // group
+    dev = rays8.device
+    clist = torch.empty((ng, s_count), dtype=torch.int32, device=dev)
+    bits = torch.empty((ng, s_count), dtype=torch.int32, device=dev)
+    counts = torch.empty((ng, 1), dtype=torch.int32, device=dev)
+    cb8 = _f32(cb8)
+    _launch("cull_pg2", _f32(rays8), cb8, cb8.shape[1], rays8.shape[0],
+            s_count, group, clist, bits, counts)
+    return clist, bits, counts
+
+
+# ---------------------------------------------------------------------------
+# B4: per-group walk
+# ---------------------------------------------------------------------------
+
+def pgwalk2_plain(clist, bits, counts, rays8, woop, group: int,
+                  any_hit: bool = False):
+    """Plain version of B4.  Each ray's winner is the lexicographic min of
+    (t, index) over the valid candidates of every cluster its group
+    lists, with t below min(t_max, BIG).  Returns (t [Np, 1] — the
+    winner's t, else min(t_max, BIG); i [Np, 1] int32 — local id or
+    -1)."""
+    npad = rays8.shape[0]
+    ng = npad // group
+    dev = rays8.device
+    t_cap = torch.clamp_max(rays8[:, 6], BIG)
+    listed = torch.arange(clist.shape[1], device=dev)[None, :] < counts
+    k16 = torch.arange(SUPER, dtype=torch.int32, device=dev)
+    on = (((bits[..., None] >> k16) & 1) > 0) & listed[..., None]
+    g_idx, j_idx, k_idx = on.nonzero(as_tuple=True)
+    cl = clist[g_idx, j_idx].long() * SUPER + k_idx
+    rays_g = rays8.view(ng, group, 8)
+    lane = torch.arange(CLUSTER, dtype=torch.int32, device=dev)
+    pt, pi, pr = [], [], []
+    step = max(1, _PLAIN_CHUNK // (group * CLUSTER))
+    for p0 in range(0, cl.numel(), step):
+        g = g_idx[p0:p0 + step]
+        c = cl[p0:p0 + step]
+        cols = _ray_cols(rays_g[g])                          # [p, G, 1]
+        t, valid = _woop_candidates(cols[0:3], cols[3:6], woop[c, :13],
+                                    nested=True)
+        valid = valid & (t < t_cap.view(ng, group)[g][..., None])
+        if any_hit:
+            valid = valid & (t > cols[7])
+        idx = (c.to(torch.int32) * CLUSTER)[:, None, None] + lane
+        t_c, i_c = _lex_min_lanes(t, valid, idx)
+        pt.append(t_c.reshape(-1))
+        pi.append(i_c.reshape(-1))
+        pr.append((g[:, None] * group
+                   + torch.arange(group, device=dev)).reshape(-1))
+    best_t = t_cap.clone()
+    best_i = torch.full((npad,), MISS_IDX, dtype=torch.int32, device=dev)
+    if pt:
+        pt, pi, pr = torch.cat(pt), torch.cat(pi), torch.cat(pr)
+        best_t = best_t.scatter_reduce(0, pr, pt, "amin")
+        at_min = pt == best_t[pr]
+        best_i = best_i.scatter_reduce(
+            0, pr, torch.where(at_min, pi, torch.full_like(pi, MISS_IDX)),
+            "amin")
+    out_i = torch.where(best_t < t_cap, best_i, torch.full_like(best_i, -1))
+    return best_t[:, None], out_i[:, None]
+
+
+def pgwalk2(clist, bits, counts, rays8, woop, group: int,
+            any_hit: bool = False, plain: bool = False):
+    """B4 (replaces ``_pgwalk2_kernel`` resident mode,
+    traversal_pallas.py:697)."""
+    _check_group(group, rays8.shape[0])
+    if plain or _on_cpu(rays8):
+        return pgwalk2_plain(clist, bits, counts, rays8, woop, group, any_hit)
+    npad = rays8.shape[0]
+    out_t = torch.empty((npad, 1), dtype=torch.float32, device=rays8.device)
+    out_i = torch.empty((npad, 1), dtype=torch.int32, device=rays8.device)
+    _launch("pgwalk2", _i32(clist), _i32(bits), _i32(counts), clist.shape[1],
+            _f32(rays8), _f32(woop), npad // group, group, int(any_hit),
+            out_t, out_i)
+    return out_t, out_i
+
+
+# ---------------------------------------------------------------------------
+# Launch plumbing
+# ---------------------------------------------------------------------------
+
+def _on_cpu(x) -> bool:
+    """True for CPU tensors (plain version), False for CUDA tensors
+    (kernel); any other device raises."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"traversal kernels need CPU or CUDA tensors, got "
+                         f"{x.device}")
+    return False
+
+
+def _check_tile(tile: int) -> None:
+    if tile % 32 or not 32 <= tile <= 1024:
+        raise ValueError(f"kernel tile {tile} must be a multiple of 32 in "
+                         f"[32, 1024] (one thread per ray)")
+
+
+def _check_group(group: int, npad: int) -> None:
+    if group < 1 or group > 1024 or group & (group - 1):
+        raise ValueError(f"pg2 group {group} must be a power of two <= 1024")
+    if npad % group:
+        raise ValueError(f"{npad} rays do not split into groups of {group}")
+
+
+def _f32(x):
+    if x.dtype != torch.float32:
+        raise TypeError(f"expected float32, got {x.dtype}")
+    return x.contiguous()
+
+
+def _i32(x):
+    if x.dtype != torch.int32:
+        raise TypeError(f"expected int32, got {x.dtype}")
+    return x.contiguous()
+
+
+def _launch(name: str, *args) -> None:
+    """Call ``srt_<name>`` of the kernel library on the current stream and
+    raise if the launch failed; tensors go as pointers, ints as ints."""
+    from srt_tpu_torch.ops import cuda_lib
+
+    lib = cuda_lib.load().lib
+    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cargs = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
+             else ctypes.c_int(a) for a in args]
+    with torch.cuda.device(dev):
+        err = getattr(lib, f"srt_{name}")(*cargs, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"kernel {name} failed to launch: "
+                           f"{cuda_lib.error_string(err)}")
+    launch_counts[name] += 1
+
+
+# ---------------------------------------------------------------------------
+# Model-hit wrapper (the mesh_hit_fn strategy entry point)
+# ---------------------------------------------------------------------------
+
+def model_tables(scene, b: int):
+    """The walk tables of model ``b``: (woop [C, 16, 128], cb [S, 8, 16],
+    sbounds [8, S], cb8 [8, 16*S], s_count, n_clusters).
+
+    Clusters pad to a full super.  The per-cluster boxes (cb, cb8) pad
+    with NaN boxes, which fail every slab test for any ray (an inverted
+    box would slab-test as a huge one); the super bounds reduce with
+    +/-BIG identities so a partial super keeps its real bounds."""
+    lo = scene.model_first_tri[b]
+    count = scene.model_padded_tri_count[b]
+    if count % CLUSTER:
+        raise ValueError("model is not cluster-aligned; flatten with "
+                         "pad_to=128")
+    c_lo = lo // CLUSTER
+    n_clusters = count // CLUSTER
+    cmin = scene.cluster_min[c_lo:c_lo + n_clusters]
+    cmax = scene.cluster_max[c_lo:c_lo + n_clusters]
+    s_count = -(-n_clusters // SUPER)
+    c_pad = s_count * SUPER - n_clusters
+
+    def pad(x, value):
+        fill = torch.full((c_pad, 3), value, dtype=x.dtype, device=x.device)
+        return torch.cat([x, fill])
+
+    cmin_n, cmax_n = pad(cmin, float("nan")), pad(cmax, float("nan"))
+    zeros = torch.zeros((s_count, 2, SUPER), dtype=torch.float32,
+                        device=cmin.device)
+    cb = torch.cat([cmin_n.view(s_count, SUPER, 3).transpose(1, 2),
+                    cmax_n.view(s_count, SUPER, 3).transpose(1, 2),
+                    zeros], dim=1).contiguous()
+    smin = pad(cmin, BIG).view(s_count, SUPER, 3).amin(1)
+    smax = pad(cmax, -BIG).view(s_count, SUPER, 3).amax(1)
+    sbounds = torch.cat([smin.T, smax.T, zeros[:, :, 0].T]).contiguous()
+    cb8 = torch.cat([cmin_n.T, cmax_n.T,
+                     torch.zeros((2, s_count * SUPER), dtype=torch.float32,
+                                 device=cmin.device)]).contiguous()
+    woop = scene.woop[c_lo:c_lo + n_clusters]
+    return woop, cb, sbounds, cb8, s_count, n_clusters
+
+
+def pack_rays(scene, b: int, origins, dirs, t_best, tile: int,
+              t_lo: float = 0.0):
+    """The walk kernels' ray operand for model ``b``: (rays8 [Np, 8], o_m,
+    d_m) with Np = N rounded up to ``tile``; columns origin, direction,
+    t_max, t_lo, in model space.  Padding rays are dead (t_max = 0).
+
+    Root-AABB t-clip: hits lie inside the model's box, so a ray's window
+    ends just past the box exit; rays missing the box become dead.  NaN
+    from an on-boundary origin with an axis-parallel direction kills the
+    ray, as in the slab tests."""
+    from srt_tpu_torch.models.mesh import transform_rays
+
+    o_m, d_m = transform_rays(scene.frames[b], origins, dirs)
+    n = origins.shape[1]
+    dev = origins.device
+    c_lo = scene.model_first_tri[b] // CLUSTER
+    c_hi = c_lo + scene.model_padded_tri_count[b] // CLUSTER
+    root_lo = scene.cluster_min[c_lo:c_hi].amin(0)
+    root_hi = scene.cluster_max[c_lo:c_hi].amax(0)
+    inv_d = 1.0 / d_m
+    tb0 = (root_lo[:, None] - o_m) * inv_d
+    tb1 = (root_hi[:, None] - o_m) * inv_d
+    bt_near = torch.minimum(tb0, tb1).amax(0)
+    bt_far = torch.maximum(tb0, tb1).amin(0)
+    t_clip = torch.where((bt_near <= bt_far) & (bt_far >= 0.0),
+                         bt_far * (1.0 + 1e-4) + 1e-3,
+                         torch.zeros_like(bt_far))
+    t_best = torch.as_tensor(t_best, dtype=torch.float32, device=dev)
+    rays8 = torch.zeros((n + (-n) % tile, 8), dtype=torch.float32,
+                        device=dev)
+    rays8[:n, 0:3] = o_m.T
+    rays8[:, 3:6] = 1.0
+    rays8[:n, 3:6] = d_m.T
+    rays8[:n, 6] = torch.minimum(t_best.expand(n), t_clip)
+    rays8[:, 7] = t_lo
+    return rays8, o_m, d_m
+
+
+def model_hit(scene, b: int, origins, dirs, t_best, tile: int = DEFAULT_TILE,
+              any_hit: bool = False, refine: bool = True, stream=None,
+              binned=False, count_evals: bool = False, t_min: float = 0.0,
+              plain: bool = False):
+    """Closest hit of [3, N] rays against model ``b`` (counterpart of
+    ``pallas_model_hit``).  Returns (t [N], tri_idx [N] int32, u, v).
+
+    ``binned``: False for the tiled walk, ``"pg2:G[:W]"`` for the
+    per-group walk at G-ray groups (W is a TPU unroll width with no
+    effect on the result).  ``any_hit`` is the shadow-ray mode: candidate
+    t > ``t_min`` is required and any hit inside t_best may end the walk.
+    ``refine=False`` (or any-hit) returns the kernels' candidate t with
+    zero u/v.  ``plain=True`` runs the plain versions on CUDA tensors (for
+    kernel-vs-plain comparisons only).
+    """
+    if scene.woop is None:
+        raise ValueError("scene was uploaded without walk tables; use "
+                         "flatten_models(..., pad_to=128) + upload()")
+    if stream:
+        raise NotImplementedError("streamed Woop tables (B2s/B4s) are not "
+                                  "ported yet: ROADMAP.md queue B")
+    if count_evals:
+        raise NotImplementedError("count_evals counters (B2c) are not "
+                                  "ported yet: ROADMAP.md queue B")
+    if binned is True or binned == "binned":
+        raise NotImplementedError("the binned walk (B5) is not ported yet: "
+                                  "ROADMAP.md queue B")
+    if binned == "pg":
+        raise NotImplementedError("the pg v1 walk (B6/B7) is not ported "
+                                  "yet: ROADMAP.md queue B")
+    group = 0
+    if isinstance(binned, str):
+        if not binned.startswith("pg2:"):
+            raise ValueError(f"unknown walk {binned!r}")
+        group = int(binned.split(":")[1])
+
+    lo = scene.model_first_tri[b]
+    woop, cb, sbounds, cb8, s_count, _ = model_tables(scene, b)
+    rays8, o_m, d_m = pack_rays(scene, b, origins, dirs, t_best, tile,
+                                t_min if any_hit else 0.0)
+    n = origins.shape[1]
+    npad = rays8.shape[0]
+    dev = origins.device
+
+    if group and s_count > 1:
+        clist, bits, counts = cull_pg2(rays8, cb8, s_count, group, plain)
+        out_t, out_i = pgwalk2(clist, bits, counts, rays8, woop, group,
+                               any_hit, plain)
+    else:
+        if s_count == 1:
+            # One super: the list is trivial; the cluster gate culls.
+            alive = rays8[:, 6].view(-1, tile).amax(1) > 0.0
+            counts = alive.to(torch.int32)[:, None]
+            clist = torch.zeros((npad // tile, 1), dtype=torch.int32,
+                                device=dev)
+            elist = torch.zeros((npad // tile, 1), dtype=torch.float32,
+                                device=dev)
+        else:
+            clist, elist, counts = cull(rays8, sbounds, tile, plain)
+        out_t, out_i = intersect(counts, clist, elist, rays8, cb, woop,
+                                 tile, any_hit, plain)
+    out_t = out_t[:n, 0]
+    out_i = out_i[:n, 0]
+
+    hit = out_i >= 0
+    idx = torch.where(hit, out_i + lo, torch.full_like(out_i, -1))
+    inf = torch.full_like(out_t, float("inf"))
+    if any_hit or not refine:
+        zeros = torch.zeros_like(out_t)
+        return torch.where(hit, out_t, inf), idx, zeros, zeros
+    w = torch.clamp_min(idx, 0).long()
+    v0 = scene.tri_v0[w].T
+    t, u, v = mt_refine(o_m, d_m, v0, scene.tri_v1[w].T - v0,
+                        scene.tri_v2[w].T - v0)
+    zeros = torch.zeros_like(t)
+    return (torch.where(hit, t, inf), idx, torch.where(hit, u, zeros),
+            torch.where(hit, v, zeros))
