@@ -11,20 +11,39 @@ Phases, one line each; the last line is printed only when all pass:
 2. Build: nvcc builds ``srt_tpu_torch/csrc`` into ``build/srt_tpu_torch``.
 3. Kernel vs plain PyTorch version, on the card, at the headline scene's
    tables (101,760 triangles, 50 superclusters) and 65,536 rays per case:
-   outputs must be equal; median times of both.
+   outputs must be equal; median times of both.  Also the counted tiled
+   walk (B2c) there, and the threefry lattice kernel at 18 slots x 1M
+   columns (``full`` and ``rows_at``, bit for bit).
 4. The headline render at full size: ``make_render_plan`` on
    ``uv_sphere(160, 320, radius=2.0)``, 1024x1024, spp 1, max_depth 4,
    probe + schedule discovery, then one untimed frame in which every
    kernel launch is recorded and replayed through its plain version (the
    main path's own inputs and ray counts; outputs must be equal), then
-   10 timed frames; overflow 0, a finite image, every kernel launched;
-   Mrays/s with ``bench.py``'s accounting.
+   10 timed frames; overflow 0, a finite image, every kernel of the path
+   launched; Mrays/s with ``bench.py``'s accounting.
 5. A 128x128 frame from one injected uniform array (numpy seed 0) through
    the kernels and through the plain versions: equal stats, allclose
    image (rtol 1e-4, atol 1e-5).
+6. The config8 scene (``bench_suite.py`` config8): ``uv_sphere(360, 700,
+   radius=2.0)``, 502,600 triangles in 3,927 clusters, above the stream
+   threshold, so the plan walks with the streamed kernels.  (a) B2s and
+   B4s against their plain versions at 65,536 rays on its tables;
+   (b) resident vs streamed kernels on both scenes' tables, same rays,
+   equal outputs, ms of both; (c) one untimed 512x512, max_depth 2 frame
+   whose every launch is replayed through its plain version and which
+   must launch the streamed walks and not the resident ones; (d) 10 timed
+   frames: overflow 0, a finite image, Mrays/s.
+7. Eval counters (B2c) on the full-frame primaries of both scenes through
+   ``model_hit(count_evals=True)``: equal to the plain counters; mean
+   supers processed and clusters evaluated per tile.
 
-``--profile PATH`` also writes a ``torch.profiler`` table of one more
-frame to PATH (the source of PERF.md section 5).
+Each path (the headline frames, the config8 frames, the counter run) is
+driven with the launch counts set to 0 just before it and read just
+after; every kernel must be launched by its path.
+
+``--profile PATH`` also writes ``torch.profiler`` tables of one more
+headline frame and one more config8 frame to PATH (the source of PERF.md
+section 5).
 """
 
 from __future__ import annotations
@@ -40,18 +59,41 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
+TP = "srt_tpu/ops/traversal_pallas.py"
 KERNELS = {
-    # name: (source, TPU kernel it replaces)
-    "cull": ("srt_tpu_torch/csrc/cull.cu",
-             "srt_tpu/ops/traversal_pallas.py:134"),
-    "intersect": ("srt_tpu_torch/csrc/intersect.cu",
-                  "srt_tpu/ops/traversal_pallas.py:1061"),
-    "cull_pg2": ("srt_tpu_torch/csrc/cull_pg2.cu",
-                 "srt_tpu/ops/traversal_pallas.py:527"),
-    "pgwalk2": ("srt_tpu_torch/csrc/pgwalk2.cu",
-                "srt_tpu/ops/traversal_pallas.py:697"),
+    # name: (module, source, what it replaces)
+    "cull": ("traversal", "srt_tpu_torch/csrc/cull.cu", f"{TP}:134"),
+    "intersect": ("traversal", "srt_tpu_torch/csrc/intersect.cu",
+                  f"{TP}:1061"),
+    "cull_pg2": ("traversal", "srt_tpu_torch/csrc/cull_pg2.cu", f"{TP}:527"),
+    "pgwalk2": ("traversal", "srt_tpu_torch/csrc/pgwalk2.cu", f"{TP}:697"),
+    "intersect_stream": ("traversal", "srt_tpu_torch/csrc/intersect.cu",
+                         f"{TP}:1061"),
+    "pgwalk2_stream": ("traversal", "srt_tpu_torch/csrc/pgwalk2.cu",
+                       f"{TP}:697"),
+    "intersect_count": ("traversal", "srt_tpu_torch/csrc/intersect.cu",
+                        f"{TP}:1061"),
+    # Not a TPU kernel: JAX's threefry (XLA), srt_tpu/ops/rng.py:48.
+    "threefry": ("rng", "srt_tpu_torch/csrc/threefry.cu",
+                 "srt_tpu/ops/rng.py:48"),
 }
+# The path whose run gives each kernel's launch count.
+HEADLINE_PATH = ("cull", "intersect", "cull_pg2", "pgwalk2", "threefry")
+CONFIG8_PATH = ("cull", "intersect_stream", "cull_pg2", "pgwalk2_stream",
+                "threefry")
+COUNTER_PATH = ("intersect_count",)
 HEADLINE_CAMERA = dict(origin=(0.0, 1.0, 5.0), look_at=(0.0, 0.0, 0.0))
+# Sizes: scenes (uv_sphere rows, cols), frame widths, kernel-case rays,
+# threefry block columns.
+HEADLINE_SPHERE, CONFIG8_SPHERE = (160, 320), (360, 700)
+HEADLINE_SIZE, CONFIG8_SIZE = 1024, 512
+CASE_RAYS, THREEFRY_COLS = 65536, 1 << 20
+# Outputs of each kernel that are float (compared for max_abs_err too);
+# all outputs must be equal.
+FLOAT_OUTPUTS = {"cull": (1,), "intersect": (0,), "cull_pg2": (),
+                 "pgwalk2": (0,), "intersect_stream": (0,),
+                 "pgwalk2_stream": (0,), "intersect_count": (0,),
+                 "threefry": (0,)}
 
 
 class SmokeFailure(Exception):
@@ -61,6 +103,15 @@ class SmokeFailure(Exception):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def kernel_module(name):
+    from srt_tpu_torch.ops import rng, traversal
+    return {"traversal": traversal, "rng": rng}[KERNELS[name][0]]
+
+
+def as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
 
 
 def timed_median(fn, reps=10):
@@ -91,18 +142,12 @@ def card_line():
     return proc.stdout.strip().splitlines()[0]
 
 
-# Outputs of each kernel that are float (compared for max_abs_err too);
-# all outputs must be equal.
-FLOAT_OUTPUTS = {"cull": (1,), "intersect": (0,), "cull_pg2": (),
-                 "pgwalk2": (0,)}
-
-
 def compare(name, case, k_out, p_out):
     """Check a kernel's outputs equal its plain version's; returns the max
     abs difference of the float outputs (0.0 when equal)."""
     import torch
     errs = [0.0]
-    for q, (a, b) in enumerate(zip(k_out, p_out)):
+    for q, (a, b) in enumerate(zip(as_tuple(k_out), as_tuple(p_out))):
         if q in FLOAT_OUTPUTS[name]:
             diff = (a - b).abs()
             finite = torch.isfinite(a) & torch.isfinite(b)
@@ -115,38 +160,47 @@ def compare(name, case, k_out, p_out):
     return max(errs)
 
 
-def headline_scene(device):
+def build_scene(device, rows, cols):
     from srt_tpu_torch.models import mesh
     from srt_tpu_torch.utils.flatten import flatten_models
     from srt_tpu_torch.utils.procgen import uv_sphere
     t0 = time.perf_counter()
-    scene = mesh.upload(flatten_models([uv_sphere(160, 320, radius=2.0)],
+    scene = mesh.upload(flatten_models([uv_sphere(rows, cols, radius=2.0)],
                                        pad_to=128), device=device)
     return scene, time.perf_counter() - t0
 
 
-def phase_kernels(scene, card, results):
-    """Phase 3: every kernel against its plain version on the card."""
-    import numpy as np
+def primary_rays(scene, size, tile):
+    """Pixel-centre primary rays of the headline camera at size x size, in
+    Morton order, packed for the tiled walk: (origins, dirs, rays8)."""
     import torch
 
     from srt_tpu_torch.camera import derive_viewport, generate_rays
     from srt_tpu_torch.config import CameraConfig
-    from srt_tpu_torch.models.pathtracer import _bounce_sort_keys
     from srt_tpu_torch.ops import traversal as tr
     from srt_tpu_torch.ops.morton import morton_perm, permute_rays
-
     dev = scene.device
-    woop, cb, sbounds, cb8, s_count, n_clusters = tr.model_tables(scene, 0)
-    n = 65536
-    # Primary rays: the headline camera at 256x256 (Morton order).
-    cam = CameraConfig(width=256, height=256, **HEADLINE_CAMERA)
-    jit = torch.full((2, n), 0.5, device=dev)
-    o, d = generate_rays(derive_viewport(cam, device=dev), 256, 256, jit)
-    o, d = permute_rays(o, d, morton_perm(256, 256)[0])
-    prim8, _, _ = tr.pack_rays(scene, 0, o, d, float("inf"), 256)
-    # Bounce-like rays: random origins around the sphere aimed at points
-    # inside it, a third dead, in the integrator's 6-D coherence order.
+    cam = CameraConfig(width=size, height=size, **HEADLINE_CAMERA)
+    jit = torch.full((2, size * size), 0.5, device=dev)
+    o, d = generate_rays(derive_viewport(cam, device=dev), size, size, jit)
+    o, d = permute_rays(o, d, morton_perm(size, size)[0])
+    return o, d, tr.pack_rays(scene, 0, o, d, float("inf"), tile)[0]
+
+
+def walk_rays(scene):
+    """Kernel-case rays: primaries (256x256, tile 256) and bounce-like rays
+    (random origins around the sphere aimed at points inside it, a third
+    dead, in the integrator's 6-D coherence order; tile 128) for closest
+    hits and as shadow segments."""
+    import numpy as np
+    import torch
+
+    from srt_tpu_torch.models.pathtracer import _bounce_sort_keys
+    from srt_tpu_torch.ops import traversal as tr
+    dev = scene.device
+    n = CASE_RAYS
+    size = int(n ** 0.5)
+    prim8 = primary_rays(scene, size, 256)[2]
     rng = np.random.default_rng(0)
     ro = rng.uniform(-4.0, 4.0, (n, 3)).astype(np.float32)
     ro += np.sign(ro) * 2.0
@@ -163,28 +217,53 @@ def phase_kernels(scene, card, results):
     t_seg = torch.where(alive, seg, 0.0)
     bounce8, _, _ = tr.pack_rays(scene, 0, bo, bd, t_closest, 128)
     shadow8, _, _ = tr.pack_rays(scene, 0, bo, bd, t_seg, 128, t_lo=1e-3)
+    return prim8, bounce8, shadow8
 
-    def run_case(name, case, kernel_fn, plain_fn):
+
+class Cases:
+    """Kernel-vs-plain cases, by kernel name."""
+
+    def __init__(self, card):
+        self.card = card
+        self.results = {k: {"cases": []} for k in KERNELS}
+
+    def run(self, tag, name, case, kernel_fn, plain_fn):
         k_ms, k_out = timed_median(kernel_fn)
         p_ms, p_out = timed_median(plain_fn)
         err = compare(name, case, k_out, p_out)
-        rec = results.setdefault(name, {"cases": []})
-        rec["cases"].append(dict(case=case, ms=k_ms, plain_ms=p_ms,
-                                 max_abs_err=err))
-        print(f"[3] {name:9s} {case:34s} kernel {k_ms:9.3f} ms  plain "
-              f"{p_ms:9.3f} ms  equal (max_abs_err {err})  [{card}]",
+        self.results[name]["cases"].append(dict(case=case, ms=k_ms,
+                                                plain_ms=p_ms,
+                                                max_abs_err=err))
+        print(f"[{tag}] {name:16s} {case:40s} kernel {k_ms:9.3f} ms  plain "
+              f"{p_ms:9.3f} ms  equal (max_abs_err {err})  [{self.card}]",
               flush=True)
         return k_out
 
-    lists = run_case(
-        "cull", "primary tile 256",
+    def replayed(self, name, case, p_ms, err):
+        self.results[name]["cases"].append(dict(case=case, ms=None,
+                                                plain_ms=p_ms,
+                                                max_abs_err=err))
+
+
+def phase_kernels(scene, cases):
+    """Phase 3: every resident kernel, B2c and threefry against their plain
+    versions on the card."""
+    import torch
+
+    from srt_tpu_torch.ops import rng
+    from srt_tpu_torch.ops import traversal as tr
+
+    woop, cb, sbounds, cb8, s_count, _ = tr.model_tables(scene, 0)
+    prim8, bounce8, shadow8 = walk_rays(scene)
+    n = bounce8.shape[0]
+    clist, elist, counts = cases.run(
+        3, "cull", "primary tile 256",
         lambda: tr.cull(prim8, sbounds, 256),
         lambda: tr.cull(prim8, sbounds, 256, plain=True))
-    clist, elist, counts = lists
     for any_hit in (False, True):
-        run_case(
-            "intersect", f"primary tile 256 {'any' if any_hit else 'closest'}"
-            "-hit",
+        kind = "any" if any_hit else "closest"
+        cases.run(
+            3, "intersect", f"primary tile 256 {kind}-hit",
             lambda: tr.intersect(counts, clist, elist, prim8, cb, woop, 256,
                                  any_hit),
             lambda: tr.intersect(counts, clist, elist, prim8, cb, woop, 256,
@@ -192,26 +271,40 @@ def phase_kernels(scene, card, results):
     for group in (128, 32):
         for any_hit, rays8 in ((False, bounce8), (True, shadow8)):
             kind = "any" if any_hit else "closest"
-            pg = run_case(
-                "cull_pg2", f"bounce G={group} {kind}-hit rays",
+            pg = cases.run(
+                3, "cull_pg2", f"bounce G={group} {kind}-hit rays",
                 lambda: tr.cull_pg2(rays8, cb8, s_count, group),
                 lambda: tr.cull_pg2(rays8, cb8, s_count, group, plain=True))
-            run_case(
-                "pgwalk2", f"bounce G={group} {kind}-hit",
+            cases.run(
+                3, "pgwalk2", f"bounce G={group} {kind}-hit",
                 lambda: tr.pgwalk2(*pg, rays8, woop, group, any_hit),
                 lambda: tr.pgwalk2(*pg, rays8, woop, group, any_hit,
                                    plain=True))
     hits = int((tr.pgwalk2(*tr.cull_pg2(bounce8, cb8, s_count, 32), bounce8,
                            woop, 32)[1] >= 0).sum())
     check(hits > n // 4, f"only {hits} of {n} bounce rays hit the sphere")
+    cases.run(
+        3, "intersect_count", "headline primary tile 256 closest-hit",
+        lambda: tr.intersect_count(counts, clist, elist, prim8, cb, woop, 256),
+        lambda: tr.intersect_count(counts, clist, elist, prim8, cb, woop, 256,
+                                   plain=True))
+
+    n, sub = THREEFRY_COLS, rng.fold_in(rng.key(0, scene.device), 1)
+    block = rng.SlotBlock(sub, 18, n)
+    cases.run(3, "threefry", f"full() 18 x {n}", block.full,
+              lambda: rng.threefry(sub, 0, 18, n, plain=True))
+    cols = torch.randperm(n, device=scene.device)
+    cases.run(3, "threefry", f"rows_at(0, 18, {n} permuted cols)",
+              lambda: block.rows_at(0, 18, cols),
+              lambda: rng.threefry(sub, 0, 18, n, cols, plain=True))
 
 
 @contextlib.contextmanager
-def recorded_launches(tr):
-    """While the block runs, record each kernel wrapper call of ``tr``:
-    yields a list of (name, bound arguments, outputs), tensors cloned."""
+def recorded_launches():
+    """While the block runs, record each kernel wrapper call: yields a list
+    of (name, bound arguments, outputs), tensors cloned."""
     calls = []
-    saved = {name: getattr(tr, name) for name in KERNELS}
+    saved = {name: getattr(kernel_module(name), name) for name in KERNELS}
 
     def recorder(name, fn):
         sig = inspect.signature(fn)
@@ -222,106 +315,153 @@ def recorded_launches(tr):
             bound.apply_defaults()
             calls.append((name, {k: v.clone() if hasattr(v, "clone") else v
                                  for k, v in bound.arguments.items()},
-                          tuple(o.clone() for o in out)))
+                          tuple(o.clone() for o in as_tuple(out))))
             return out
         return call
 
     for name, fn in saved.items():
-        setattr(tr, name, recorder(name, fn))
+        setattr(kernel_module(name), name, recorder(name, fn))
     try:
         yield calls
     finally:
         for name, fn in saved.items():
-            setattr(tr, name, fn)
+            setattr(kernel_module(name), name, fn)
 
 
-def phase_render(scene, card, results, profile):
+def replay_frame(tag, plan, cases, key):
+    """Render one untimed frame recording every kernel launch, replay each
+    through its plain version; returns the set of kernels launched."""
+    import torch
+    with recorded_launches() as calls:
+        plan.render(key)
+    torch.cuda.synchronize()
+    for k, (name, args, k_out) in enumerate(calls):
+        check(not args["plain"], f"{name}: the render path ran the plain "
+                                 f"version")
+        if name == "threefry":
+            m = args["n"] if args["cols"] is None else args["cols"].shape[0]
+            case = (f"frame launch {k}: rows {args['lo']}..+{args['rows']} "
+                    f"x {m} cols of n={args['n']}"
+                    f"{' (fold_in)' if args['raw'] else ''}")
+        else:
+            rays8 = args["rays8"]
+            mode = (f"G={args['group']}" if "group" in args
+                    else f"tile {args['tile']}")
+            if "any_hit" in args:
+                mode += " any-hit" if args["any_hit"] else " closest-hit"
+            case = (f"frame launch {k}: {rays8.shape[0]} rays "
+                    f"({int((rays8[:, 6] > 0).sum())} live), {mode}")
+        t0 = time.perf_counter()
+        p_out = getattr(kernel_module(name), name)(**{**args, "plain": True})
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        err = compare(name, case, k_out, p_out)
+        cases.replayed(name, case, p_ms, err)
+        print(f"[{tag}] {name:16s} {case:56s} equals plain (plain "
+              f"{p_ms:.1f} ms, max_abs_err {err})  [{cases.card}]",
+              flush=True)
+    return {name for name, _, _ in calls}
+
+
+def timed_frames(tag, plan, cases, path, size, label):
+    """Ten timed frames (keys 1..10) with the launch counts zeroed just
+    before and read just after; checks and prints the frame results."""
+    import torch
+
+    from srt_tpu_torch.ops import rng
+    from srt_tpu_torch.ops import traversal as tr
+    dev = plan.lights.position.device  # the scene's device
+    tr.reset_launch_counts()
+    times = []
+    for i in range(10):
+        key = rng.key(i + 1, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, stats, overflow = plan.render(key)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check(int(overflow) == 0, f"{label} frame {i}: overflow "
+                                  f"{int(overflow)}")
+    launches = dict(tr.launch_counts)
+    for name in path:
+        check(launches[name] > 0, f"kernel {name} never launched by the "
+                                  f"{label} path")
+        cases.results[name].setdefault("launches", launches[name])
+    check(tuple(img.shape) == (size, size, 3), f"image shape {img.shape}")
+    check(bool(torch.isfinite(img).all()), f"{label}: non-finite pixels")
+    mean = float(img.mean())
+    check(1e-4 < mean < 10.0, f"{label}: image mean {mean} out of range")
+    dt = sum(times) / len(times)
+    rays = int(stats.sum())
+    print(f"[{tag}] stats per bounce (traced, shadow): {stats.tolist()}, "
+          f"image mean {mean:.6f}, launches {launches}", flush=True)
+    print(f"[{tag}] frame times (s): {[round(t, 6) for t in times]}",
+          flush=True)
+    print(f"[{tag}] {label}: {rays / dt / 1e6:.4f} Mrays/s ({rays} "
+          f"rays/frame, mean frame {dt * 1e3:.3f} ms)  [{cases.card}]",
+          flush=True)
+    return launches, dt
+
+
+def profile_frame(plan, label, frame_s, path):
+    """Append a torch.profiler table of one more frame to ``path`` and
+    print the device time against the mean frame time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    from srt_tpu_torch.ops import rng
+    dev = plan.lights.position.device
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        plan.render(rng.key(99, dev))
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    # Device rows only, as the table's own total counts them (the CPU op
+    # rows repeat their kernels' time).
+    dev_us = sum(e.self_device_time_total for e in avgs
+                 if e.device_type == DeviceType.CUDA
+                 and not e.is_user_annotation)
+    table = avgs.table(sort_by="cuda_time_total", row_limit=40)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "a") as f:
+        f.write(f"== {label}: device time {dev_us / 1e3:.3f} ms, mean frame "
+                f"{frame_s * 1e3:.3f} ms\n{table}\n")
+    print(f"[profile] {label}: device time {dev_us / 1e3:.3f} ms of a "
+          f"{frame_s * 1e3:.3f} ms mean frame (busy "
+          f"{100 * dev_us / 1e3 / (frame_s * 1e3):.1f}%)\n" + "\n".join(
+              table.splitlines()[:14]), flush=True)
+
+
+def phase_render(scene, cases, profile):
     """Phase 4: the headline render at full size."""
     import torch
 
     from srt_tpu_torch.config import CameraConfig, RenderConfig
     from srt_tpu_torch.models.fastpath import make_render_plan
-    from srt_tpu_torch.ops import traversal as tr
+    from srt_tpu_torch.ops import rng
     from srt_tpu_torch.scene import model_scene_lights
 
     dev = scene.device
-    cam = CameraConfig(width=1024, height=1024, **HEADLINE_CAMERA)
+    cam = CameraConfig(width=HEADLINE_SIZE, height=HEADLINE_SIZE,
+                       **HEADLINE_CAMERA)
     cfg = RenderConfig(max_depth=4, rr_bounces=0, spp=1)
-    lights = model_scene_lights(dev)
     t0 = time.perf_counter()
-    plan = make_render_plan(scene, lights, cam, cfg,
-                            generator=torch.Generator(device=dev).manual_seed(0))
+    plan = make_render_plan(scene, model_scene_lights(dev), cam, cfg)
     torch.cuda.synchronize()
     print(f"[4] plan: probe + schedule discovery "
           f"{time.perf_counter() - t0:.3f} s, schedule {plan.schedule}",
           flush=True)
     # One untimed frame (as bench.py renders first), recording every
     # kernel launch; each is then replayed through its plain version.
-    with recorded_launches(tr) as calls:
-        plan.render(torch.Generator(device=dev).manual_seed(0))
-    torch.cuda.synchronize()
-    for k, (name, args, k_out) in enumerate(calls):
-        check(not args["plain"], f"{name}: the render path ran the plain "
-                                 f"version")
-        rays8 = args["rays8"]
-        mode = (f"G={args['group']}" if "group" in args
-                else f"tile {args['tile']}")
-        if "any_hit" in args:
-            mode += " any-hit" if args["any_hit"] else " closest-hit"
-        case = (f"frame launch {k}: {rays8.shape[0]} rays "
-                f"({int((rays8[:, 6] > 0).sum())} live), {mode}")
-        t0 = time.perf_counter()
-        p_out = getattr(tr, name)(**{**args, "plain": True})
-        torch.cuda.synchronize()
-        p_ms = (time.perf_counter() - t0) * 1e3
-        err = compare(name, case, k_out, p_out)
-        results[name]["cases"].append(dict(case=case, ms=None, plain_ms=p_ms,
-                                           max_abs_err=err))
-        print(f"[4] {name:9s} {case:52s} equals plain (plain {p_ms:.1f} ms, "
-              f"max_abs_err {err})  [{card}]", flush=True)
-    check({name for name, _, _ in calls} == set(KERNELS),
-          f"the untimed frame launched only {sorted({c[0] for c in calls})}")
-
-    tr.reset_launch_counts()
-    times = []
-    for i in range(10):
-        g = torch.Generator(device=dev).manual_seed(i + 1)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        img, stats, overflow = plan.render(g)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        check(int(overflow) == 0, f"frame {i}: overflow {int(overflow)}")
-    launches = dict(tr.launch_counts)
-    for name in KERNELS:
-        check(launches[name] > 0, f"kernel {name} never launched by the "
-                                  f"render path")
-        results[name]["launches"] = launches[name]
-    check(tuple(img.shape) == (1024, 1024, 3), f"image shape {img.shape}")
-    check(bool(torch.isfinite(img).all()), "non-finite pixels")
-    mean = float(img.mean())
-    check(1e-4 < mean < 10.0, f"image mean {mean} out of range")
-    dt = sum(times) / len(times)
-    rays = int(stats.sum())
-    print(f"[4] stats per bounce (traced, shadow): {stats.tolist()}, image "
-          f"mean {mean:.6f}, launches {launches}", flush=True)
-    print(f"[4] frame times (s): {[round(t, 6) for t in times]}", flush=True)
-    print(f"[4] headline: {rays / dt / 1e6:.4f} Mrays/s ({rays} rays/frame, "
-          f"mean frame {dt * 1e3:.3f} ms, 101760-tri uv_sphere, 1024x1024, "
-          f"spp 1, 4 bounces)  [{card}]", flush=True)
+    launched = replay_frame(4, plan, cases, rng.key(0, dev))
+    check(launched == set(HEADLINE_PATH),
+          f"the untimed headline frame launched {sorted(launched)}")
+    _, dt = timed_frames(4, plan, cases, HEADLINE_PATH, HEADLINE_SIZE,
+                         f"headline ({scene.model_tri_count[0]}-tri uv_sphere, "
+                         f"{HEADLINE_SIZE}x{HEADLINE_SIZE}, spp 1, 4 bounces)")
     if profile:
-        from torch.profiler import ProfilerActivity
-        with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                                ProfilerActivity.CUDA]) as prof:
-            plan.render(torch.Generator(device=dev).manual_seed(99))
-            torch.cuda.synchronize()
-        table = prof.key_averages().table(sort_by="cuda_time_total",
-                                          row_limit=40)
-        os.makedirs(os.path.dirname(os.path.abspath(profile)), exist_ok=True)
-        with open(profile, "w") as f:
-            f.write(table)
-        print("[4] profile (top device time):\n" + "\n".join(
-            table.splitlines()[:16]), flush=True)
+        profile_frame(plan, "headline", dt, profile)
     return plan
 
 
@@ -362,6 +502,162 @@ def phase_parity(scene, plan, card):
           f"{float(img_k.mean()):.6f}  [{card}]", flush=True)
 
 
+def stream_cases(scene, cases):
+    """Phase 6a: B2s and B4s against their plain versions on the config8
+    tables."""
+    from srt_tpu_torch.ops import traversal as tr
+
+    _, cb, sbounds, cb8, s_count, _ = tr.model_tables(scene, 0)
+    woop_s = tr.stream_table(scene, 0)
+    prim8, bounce8, shadow8 = walk_rays(scene)
+    clist, elist, counts = tr.cull(prim8, sbounds, 256)
+    for any_hit in (False, True):
+        kind = "any" if any_hit else "closest"
+        cases.run(
+            "6a", "intersect_stream", f"config8 primary tile 256 {kind}-hit",
+            lambda: tr.intersect_stream(counts, clist, elist, prim8, cb,
+                                        woop_s, 256, any_hit),
+            lambda: tr.intersect_stream(counts, clist, elist, prim8, cb,
+                                        woop_s, 256, any_hit, plain=True))
+    for group in (128, 32):
+        for any_hit, rays8 in ((False, bounce8), (True, shadow8)):
+            kind = "any" if any_hit else "closest"
+            pg = tr.cull_pg2(rays8, cb8, s_count, group)
+            cases.run(
+                "6a", "pgwalk2_stream", f"config8 bounce G={group} {kind}-hit",
+                lambda: tr.pgwalk2_stream(*pg, rays8, woop_s, group, any_hit),
+                lambda: tr.pgwalk2_stream(*pg, rays8, woop_s, group, any_hit,
+                                          plain=True))
+    cases.run(
+        "6a", "intersect_count", "config8 primary tile 256 stream closest-hit",
+        lambda: tr.intersect_count(counts, clist, elist, prim8, cb, woop_s,
+                                   256, stream=True),
+        lambda: tr.intersect_count(counts, clist, elist, prim8, cb, woop_s,
+                                   256, stream=True, plain=True))
+
+
+def resident_vs_stream(label, scene, card):
+    """Phase 6b: the resident and streamed walks on one scene's tables and
+    the same rays, timed in turns (resident, stream, stream, resident);
+    outputs must be equal.  Returns {case: (resident ms, stream ms)}."""
+    import torch
+
+    from srt_tpu_torch.ops import traversal as tr
+
+    woop, cb, sbounds, cb8, s_count, _ = tr.model_tables(scene, 0)
+    woop_s = tr.stream_table(scene, 0)
+    prim8, bounce8, shadow8 = walk_rays(scene)
+    clist, elist, counts = tr.cull(prim8, sbounds, 256)
+    pairs = {}
+    for any_hit in (False, True):
+        def b2(walk, w, a=any_hit):
+            return walk(counts, clist, elist, prim8, cb, w, 256, a)
+        pairs[f"B2 primary tile 256 {'any' if any_hit else 'closest'}"] = (
+            lambda w, b2=b2: b2(tr.intersect, w),
+            lambda w, b2=b2: b2(tr.intersect_stream, w))
+    for group, any_hit, rays8 in ((128, False, bounce8), (32, True, shadow8)):
+        def b4(walk, w, pg=tr.cull_pg2(rays8, cb8, s_count, group), r=rays8,
+               g=group, a=any_hit):
+            return walk(*pg, r, w, g, a)
+        pairs[f"B4 bounce G={group} {'any' if any_hit else 'closest'}"] = (
+            lambda w, b4=b4: b4(tr.pgwalk2, w),
+            lambda w, b4=b4: b4(tr.pgwalk2_stream, w))
+    out = {}
+    for case, (res_fn, str_fn) in pairs.items():
+        r1, a = timed_median(lambda: res_fn(woop))
+        s1, b = timed_median(lambda: str_fn(woop_s))
+        s2, _ = timed_median(lambda: str_fn(woop_s))
+        r2, _ = timed_median(lambda: res_fn(woop))
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"{label} {case}: streamed output differs from resident")
+        out[case] = ((r1 + r2) / 2, (s1 + s2) / 2)
+        print(f"[6b] {label:8s} {case:32s} resident {r1:8.3f}/{r2:8.3f} ms  "
+              f"stream {s1:8.3f}/{s2:8.3f} ms  outputs equal  [{card}]",
+              flush=True)
+    return out
+
+
+def phase_config8(scene8, headline, cases, profile):
+    """Phase 6: the config8 streamed scene."""
+    import torch
+
+    from srt_tpu_torch.config import CameraConfig, RenderConfig
+    from srt_tpu_torch.models.fastpath import make_render_plan
+    from srt_tpu_torch.ops import rng
+    from srt_tpu_torch.ops import traversal as tr
+    from srt_tpu_torch.scene import model_scene_lights
+
+    n_clusters = scene8.woop.shape[0]
+    check(scene8.model_tri_count[0] == 502600 and n_clusters == 3927,
+          f"config8 scene has {scene8.model_tri_count[0]} triangles, "
+          f"{n_clusters} clusters")
+    check(n_clusters > tr.STREAM_THRESHOLD_CLUSTERS,
+          "config8 must be above the stream threshold")
+    stream_cases(scene8, cases)
+    resident_vs_stream("headline", headline, cases.card)
+    resident_vs_stream("config8", scene8, cases.card)
+
+    dev = scene8.device
+    cam = CameraConfig(width=CONFIG8_SIZE, height=CONFIG8_SIZE,
+                       **HEADLINE_CAMERA)
+    cfg = RenderConfig(max_depth=2, rr_bounces=0, spp=1)
+    t0 = time.perf_counter()
+    plan = make_render_plan(scene8, model_scene_lights(dev), cam, cfg)
+    torch.cuda.synchronize()
+    print(f"[6c] plan: probe + schedule discovery "
+          f"{time.perf_counter() - t0:.3f} s, schedule {plan.schedule}",
+          flush=True)
+    launched = replay_frame("6c", plan, cases, rng.key(0, dev))
+    check(launched == set(CONFIG8_PATH),
+          f"the untimed config8 frame launched {sorted(launched)}")
+    launches, dt = timed_frames(
+        "6d", plan, cases, CONFIG8_PATH, CONFIG8_SIZE,
+        f"config8 ({scene8.model_tri_count[0]}-tri uv_sphere, streamed walks, "
+        f"{CONFIG8_SIZE}x{CONFIG8_SIZE}, spp 1, 2 bounces)")
+    check(launches["intersect"] == 0 and launches["pgwalk2"] == 0,
+          f"the config8 frames launched resident walks: {launches}")
+    if profile:
+        profile_frame(plan, "config8", dt, profile)
+
+
+def phase_counters(scenes, cases):
+    """Phase 7: B2c through ``model_hit(count_evals=True)`` on the
+    full-frame primaries of each scene, launch counts zeroed just before
+    and read just after."""
+    import torch
+
+    from srt_tpu_torch.ops import traversal as tr
+
+    rays = {label: primary_rays(scene, size, 256)[:2]
+            for label, (scene, size) in scenes.items()}
+    tr.reset_launch_counts()
+    got = {label: tr.model_hit(scenes[label][0], 0, o, d, float("inf"),
+                               tile=256, count_evals=True)
+           for label, (o, d) in rays.items()}
+    torch.cuda.synchronize()
+    launches = dict(tr.launch_counts)
+    for name in COUNTER_PATH:
+        check(launches[name] > 0, f"kernel {name} never launched by the "
+                                  f"counter run")
+        cases.results[name].setdefault("launches", launches[name])
+    for label, (o, d) in rays.items():
+        ref = tr.model_hit(scenes[label][0], 0, o, d, float("inf"), tile=256,
+                           count_evals=True, plain=True)
+        for a, b in zip(got[label], ref):
+            check(torch.equal(a, b), f"{label} counters/hits differ from "
+                                     f"the plain counted walk")
+        ctr = got[label][4]
+        busy = ctr[:, 0] > 0
+        mean_all = ctr.float().mean(0).tolist()
+        mean_busy = ctr[busy].float().mean(0).tolist()
+        print(f"[7] B2c {label:8s} {ctr.shape[0]} tiles of 256 primaries: "
+              f"per tile supers processed {mean_all[0]:.4f}, clusters "
+              f"evaluated {mean_all[1]:.4f}; over the {int(busy.sum())} "
+              f"tiles that processed a super: {mean_busy[0]:.4f} / "
+              f"{mean_busy[1]:.4f}; equal to plain  [{cases.card}]",
+              flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="PATH")
@@ -383,6 +679,7 @@ def main(argv=None) -> int:
 
     from srt_tpu_torch.ops import cuda_lib
 
+    t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     card = card_line()
     print(f"[1] device: {name}; torch {torch.__version__} cuda "
@@ -400,23 +697,36 @@ def main(argv=None) -> int:
         print(f"[2] {ln.strip()}", flush=True)
 
     dev = torch.device("cuda", 0)
-    results = {k: {"cases": []} for k in KERNELS}
-    scene, secs = headline_scene(dev)
+    cases = Cases(card)
+    if args.profile and os.path.exists(args.profile):
+        os.remove(args.profile)
+    scene, secs = build_scene(dev, *HEADLINE_SPHERE)
     print(f"[3] headline scene: {scene.woop.shape[0]} clusters, "
           f"{scene.num_triangles} triangles, built in {secs:.3f} s",
           flush=True)
-    phase_kernels(scene, card, results)
-    plan = phase_render(scene, card, results, args.profile)
+    phase_kernels(scene, cases)
+    plan = phase_render(scene, cases, args.profile)
     phase_parity(scene, plan, card)
 
+    scene8, secs = build_scene(dev, *CONFIG8_SPHERE)
+    print(f"[6] config8 scene: {scene8.woop.shape[0]} clusters, "
+          f"{scene8.model_tri_count[0]} triangles, built in {secs:.3f} s",
+          flush=True)
+    phase_config8(scene8, scene, cases, args.profile)
+    phase_counters({"headline": (scene, HEADLINE_SIZE),
+                    "config8": (scene8, CONFIG8_SIZE)}, cases)
+
     kernels = []
-    for k, (src, replaces) in KERNELS.items():
-        first = results[k]["cases"][0]
+    for k, (_, src, replaces) in KERNELS.items():
+        rec = cases.results[k]
+        first = rec["cases"][0]
         kernels.append(dict(
             name=k, route="cuda", source=src, replaces=replaces,
-            launches=results[k]["launches"],
-            max_abs_err=max(c["max_abs_err"] for c in results[k]["cases"]),
+            launches=rec["launches"],
+            max_abs_err=max(c["max_abs_err"] for c in rec["cases"]),
             ms=first["ms"], plain_ms=first["plain_ms"]))
+    print(f"[8] all phases passed in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,6 +1,7 @@
 // Shared device code of the walk kernels (cull.cu, intersect.cu,
 // cull_pg2.cu, pgwalk2.cu): constants, NaN-propagating min/max, the slab
-// test and the Woop unit-triangle evaluation.  The arithmetic matches the
+// test, the Woop unit-triangle evaluation and the streamed walks'
+// double-buffered async copy stage.  The arithmetic matches the
 // plain PyTorch versions in srt_tpu_torch/ops/traversal.py operation for
 // operation; the library is built with -fmad=false, so every multiply and
 // add rounds separately on both sides and candidate t agrees bit for bit.
@@ -121,6 +122,84 @@ __device__ __forceinline__ void stage_cluster(float* __restrict__ w_sh,
   const float* src = woop + (size_t)c * WOOP_STRIDE;
   for (int i = threadIdx.x; i < WOOP_ROWS * CLUSTER; i += blockDim.x)
     w_sh[i] = src[i];
+}
+
+// The streamed walks' stage (B2s, B4s): two shared-memory buffers of one
+// cluster's 13 used Woop rows (13 x 128 x 4 = 6,656 bytes, contiguous and
+// 16-byte aligned in the table), each filled by one 1-D bulk copy
+// (cp.async.bulk, the Hopper form of pltpu.make_async_copy) issued by
+// thread 0 and completed on that buffer's mbarrier.  Every thread tracks
+// both barriers' phase bits; control flow around the stage is
+// block-uniform, so the bits agree across the block.
+constexpr unsigned STAGE_BYTES = WOOP_ROWS * CLUSTER * sizeof(float);
+
+struct Stage {
+  float* buf;      // two buffers of WOOP_ROWS * CLUSTER floats, back to back
+  unsigned bar;    // shared address of buffer 0's mbarrier; buffer 1's at +8
+  unsigned phase;  // bit s: parity of buffer s's next completion
+  __device__ __forceinline__ float* buffer(int s) const {
+    return buf + s * (WOOP_ROWS * CLUSTER);
+  }
+};
+
+// Thread 0 initialises both barriers (one arrival each: the issuing
+// thread's arrive.expect_tx); the block synchronises before first use.
+// buf: 16-byte aligned shared memory for both buffers; bars: two uint64.
+__device__ __forceinline__ Stage stage_init(float* buf, uint64_t* bars) {
+  Stage st;
+  st.buf = buf;
+  st.bar = (unsigned)__cvta_generic_to_shared(bars);
+  st.phase = 0;
+  if (threadIdx.x == 0) {
+    for (unsigned s = 0; s < 2; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                       st.bar + 8u * s),
+                   "r"(1u)
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  return st;
+}
+
+// Thread 0 only: start the copy of cluster c into buffer s.  The caller
+// guarantees every thread has finished reading buffer s (a __syncthreads
+// after its last evaluation) and that no copy into s is in flight.
+__device__ __forceinline__ void stage_issue(const Stage& st, int s,
+                                            const float* __restrict__ woop,
+                                            int c) {
+  const float* src = woop + (size_t)c * WOOP_STRIDE;
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(st.buffer(s));
+  const unsigned bar = st.bar + 8u * s;
+  // Order the block's earlier generic-proxy reads of the buffer before
+  // the async-proxy write.
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(STAGE_BYTES)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(STAGE_BYTES), "r"(bar)
+      : "memory");
+}
+
+// Every thread: wait until buffer s's copy has landed.
+__device__ __forceinline__ void stage_wait(Stage& st, int s) {
+  const unsigned parity = (st.phase >> s) & 1u;
+  const unsigned bar = st.bar + 8u * s;
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+  st.phase ^= 1u << s;
 }
 
 }  // namespace srt

@@ -4,14 +4,18 @@
 per-query-kind walk schedule (tiled walk at tile 256 for primaries, the
 per-group ``pg2:G:W`` walk for later bounces and shadow rays) with the
 width-compacted wavefront driver and the coherence re-sorts.  Its
-``render(generator)`` returns ``(image [H, W, 3], stats [B, 2] int32,
-overflow)``; a frame with ``overflow != 0`` is invalid.
+``render(key)`` draws the frame's uniforms from ``KeyStream(key)`` (a key
+from ``ops/rng.key``: the same numbers as the JAX plan's
+``render(jax.random.key(seed))``) and returns ``(image [H, W, 3], stats
+[B, 2] int32, overflow)``; a frame with ``overflow != 0`` is invalid.
 
 Differences from the JAX package: the port always takes the compact
 driver (the JAX plan sends scenes of <= 8 superclusters to a ``lax.scan``
 integrator, an XLA compile-time heuristic), and its default method is the
 walk schedule on every device (CUDA kernels on the GPU, their plain
 versions on the CPU).  ``"dense"`` stays available as the baseline.
+Models above ``traversal.STREAM_THRESHOLD_CLUSTERS`` clusters walk with
+the streamed kernels, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from srt_tpu_torch.config import CameraConfig, RenderConfig
 from srt_tpu_torch.models import mesh as mesh_mod
 from srt_tpu_torch.models.wavefront_compact import (discover_schedule,
                                                     trace_image_compact)
-from srt_tpu_torch.ops.rng import GeneratorStream
+from srt_tpu_torch.ops import rng
 from srt_tpu_torch.scene import Lights
 
 
@@ -107,8 +111,8 @@ def build_hit_fns(scene, walks, walks_shadow, method: str = "walk",
 
 @dataclasses.dataclass
 class RenderPlan:
-    """A full-frame render plan; ``render(generator)`` draws the frame's
-    uniforms from ``generator``."""
+    """A full-frame render plan; ``render(key)`` draws the frame's
+    uniforms from ``KeyStream(key)``."""
 
     cam: CameraConfig
     cfg: RenderConfig
@@ -116,16 +120,16 @@ class RenderPlan:
     hit_fns: object
     lights: Lights
 
-    def render(self, generator: torch.Generator):
+    def render(self, key: torch.Tensor):
         n = self.cam.width * self.cam.height * self.cfg.spp
         return trace_image_compact(self.hit_fns, self.lights, self.cam,
-                                   self.cfg, GeneratorStream(generator, n),
+                                   self.cfg, rng.KeyStream(key, n),
                                    self.schedule, return_stats=True)
 
 
 def make_render_plan(scene, lights: Lights, cam: CameraConfig,
                      cfg: Optional[RenderConfig] = None,
-                     generator: Optional[torch.Generator] = None,
+                     key: Optional[torch.Tensor] = None,
                      walks=None, walks_shadow=None,
                      method: Optional[str] = None) -> RenderPlan:
     """Build the full-frame render plan for a mesh scene.
@@ -133,8 +137,8 @@ def make_render_plan(scene, lights: Lights, cam: CameraConfig,
     Picks the walk schedule (``default_walks`` unless ``walks`` /
     ``walks_shadow`` strings override), turns on the default toggles
     (bounce re-sort, the all-specular shading shortcut, shadow-batch
-    re-sort from bounce 2), and probes one frame with ``generator``
-    (default: seed 0 on the scene's device) to discover the width
+    re-sort from bounce 2), and probes one frame with ``key`` (default:
+    ``rng.key(0)`` on the scene's device) to discover the width
     schedule."""
     method = method or "walk"
     cfg = cfg or RenderConfig(max_depth=4, rr_bounces=0)
@@ -147,8 +151,8 @@ def make_render_plan(scene, lights: Lights, cam: CameraConfig,
                               uniform_use_spec=True)
     if on_walk and cfg.sort_shadows_from is None:
         cfg = dataclasses.replace(cfg, sort_shadows_from=2)
-    if generator is None:
-        generator = torch.Generator(device=scene.device).manual_seed(0)
+    if key is None:
+        key = rng.key(0, device=scene.device)
 
     if on_walk:
         dw, dws = default_walks(scene, n_bounces)
@@ -159,6 +163,6 @@ def make_render_plan(scene, lights: Lights, cam: CameraConfig,
         hit_fns = build_hit_fns(scene, dw, dws, method=method)
     else:
         hit_fns = build_hit_fns(scene, None, None, method=method)
-    schedule = discover_schedule(hit_fns, lights, cam, cfg, generator)
+    schedule = discover_schedule(hit_fns, lights, cam, cfg, key)
     return RenderPlan(cam=cam, cfg=cfg, schedule=schedule, hit_fns=hit_fns,
                       lights=lights)

@@ -24,7 +24,7 @@ import torch
 from srt_tpu_torch.camera import derive_viewport, generate_rays
 from srt_tpu_torch.config import CameraConfig, RenderConfig
 from srt_tpu_torch.models import pathtracer
-from srt_tpu_torch.ops.rng import GeneratorStream, bounce_slots
+from srt_tpu_torch.ops.rng import KeyStream, bounce_slots
 from srt_tpu_torch.ops.vec import bc
 from srt_tpu_torch.scene import Lights
 
@@ -138,15 +138,16 @@ def trace_image_compact(closest_hit, lights: Lights, cam: CameraConfig,
 
 
 def discover_schedule(closest_hit, lights: Lights, cam: CameraConfig,
-                      cfg: RenderConfig, generator: torch.Generator,
+                      cfg: RenderConfig, key: torch.Tensor,
                       margin: float = 1.25, min_width: int = GRANULE,
                       granule: int = GRANULE) -> tuple:
-    """Run one full-width probe frame and round its per-bounce alive
-    counts (times ``margin``) up to ``granule`` widths."""
+    """Run one full-width probe frame drawn from ``key`` (``ops/rng.key``)
+    and round its per-bounce alive counts (times ``margin``) up to
+    ``granule`` widths."""
     n = cam.width * cam.height * cfg.spp
     full = tuple([n] * (cfg.max_depth + cfg.rr_bounces))
     _, stats, _ = trace_image_compact(
-        closest_hit, lights, cam, cfg, GeneratorStream(generator, n), full,
+        closest_hit, lights, cam, cfg, KeyStream(key, n), full,
         return_stats=True)
     counts = stats[:, 0].cpu().numpy()
     sched = [n]

@@ -1,10 +1,16 @@
 """Build and load the hand-written CUDA kernels of ``srt_tpu_torch/csrc``.
 
-The sources compile with ``nvcc`` for Hopper (``sm_90a``) into one shared
+The sources compile with ``nvcc`` for Hopper (``sm_90a``), one ``nvcc``
+process per source, all started together, and link into one shared
 library with a plain C interface, loaded with ``ctypes``.  The build runs
 at first use, into ``build/srt_tpu_torch/`` under the repository root
 (ignored by git), and is reused while the sources and flags hash the same.
 Nothing here runs at import time.
+
+``launch`` calls one C entry point on PyTorch's current stream, raises if
+the launch failed and adds one to ``launch_counts[name]``: the kernel
+wrappers (``ops/traversal.py``, ``ops/rng.py``) count only real kernel
+launches this way, never a plain-version call.
 
 Flags: ``-fmad=false`` keeps every multiply and add separately rounded, so
 a kernel's candidate t equals its plain PyTorch version's bit for bit; no
@@ -26,20 +32,31 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "srt_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = GENCODE + (
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas",
+    "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
+_WALK_B2 = [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P]
+_WALK_B4 = [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P]
 # C entry points: name -> argument types (the trailing stream included).
 SIGNATURES = {
     "srt_cull": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
-    "srt_intersect": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "srt_intersect": _WALK_B2 + [_P],
+    "srt_intersect_stream": _WALK_B2 + [_P],
+    "srt_intersect_count": _WALK_B2 + [_I, _P, _P],
     "srt_cull_pg2": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
-    "srt_pgwalk2": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P],
+    "srt_pgwalk2": _WALK_B4 + [_P],
+    "srt_pgwalk2_stream": _WALK_B4 + [_P],
+    "srt_threefry": [_P, _P, _I, _U, _I, _U, _I, _P, _P],
 }
+
+# Kernel launches on CUDA tensors, by wrapper name (``srt_<name>``).
+launch_counts = {name[4:]: 0 for name in SIGNATURES}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +86,39 @@ def _digest(files) -> str:
     return h.hexdigest()[:16]
 
 
+def _run(procs) -> str:
+    """Wait for every process; return their output, or raise with it if
+    any failed."""
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(outs)
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"{p.args[0]} failed ({p.returncode}):\n{out}")
+    return log
+
+
+def _build(sources, so: Path) -> str:
+    """Compile each source in its own nvcc process, all at once, then link
+    the objects into ``so``; returns nvcc's output."""
+    nvcc = _nvcc()
+    tmp = BUILD_DIR / f"{so.stem}.{os.getpid()}.tmp"
+    tmp.mkdir(parents=True, exist_ok=True)
+    try:
+        objs = [tmp / f"{src.stem}.o" for src in sources]
+        log = _run([subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources, objs)])
+        lib = tmp / so.name
+        log += _run([subprocess.Popen(
+            [nvcc, *GENCODE, "-shared", "-o", str(lib), *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)])
+        os.replace(lib, so)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return log
+
+
 @functools.lru_cache(maxsize=None)
 def load() -> Library:
     """Build (if needed) and load the kernel library; raises on failure."""
@@ -77,16 +127,9 @@ def load() -> Library:
     so = BUILD_DIR / f"libsrt_tpu_torch_{digest}.so"
     seconds, log = 0.0, ""
     if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = _build(sources, so)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
@@ -99,3 +142,27 @@ def load() -> Library:
 
 def error_string(code: int) -> str:
     return f"{load().lib.srt_error_string(code).decode()} ({code})"
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def launch(name: str, *args) -> None:
+    """Call ``srt_<name>`` on the current stream of the first tensor
+    argument's device and raise if the launch failed.  Tensors go as
+    pointers, None as a null pointer, ints as the signature's C type."""
+    import torch
+
+    lib = load().lib
+    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+             for a in args]
+    with torch.cuda.device(dev):
+        err = getattr(lib, f"srt_{name}")(*cargs, stream)
+    if err != 0:
+        raise RuntimeError(f"kernel {name} failed to launch: "
+                           f"{error_string(err)}")
+    launch_counts[name] += 1

@@ -15,6 +15,13 @@ clusters form a supercluster ("super").  Two walks carry the render path:
   words per super, listed in ascending super index; ``pgwalk2`` (B4)
   evaluates exactly those clusters for the group's rays.
 
+Models above ``STREAM_THRESHOLD_CLUSTERS`` clusters take the streamed
+variants of the walks (B2s ``intersect_stream``, B4s ``pgwalk2_stream``):
+the same contract, with each evaluated cluster's Woop rows copied
+asynchronously into a double-buffered shared-memory stage while the
+previous cluster is evaluated.  ``intersect_count`` (B2c) is the tiled
+walk with per-tile counters (supers processed, clusters evaluated).
+
 Each wrapper runs its hand-written CUDA kernel (``srt_tpu_torch/csrc``) on
 CUDA tensors and its plain version on CPU tensors.  ``plain=True`` forces
 the plain version on CUDA tensors too; it exists for kernel-vs-plain
@@ -43,11 +50,14 @@ Parity notes (named where they apply):
 
 from __future__ import annotations
 
-import ctypes
+import weakref
 
 import numpy as np
 import torch
 
+from srt_tpu_torch.ops.cuda_lib import launch as _launch
+from srt_tpu_torch.ops.cuda_lib import (  # noqa: F401  (re-exported)
+    launch_counts, reset_launch_counts)
 from srt_tpu_torch.ops.intersect import MT_HIT_EPS, MT_PARALLEL_EPS, mt_refine
 
 CLUSTER = 128          # triangles per cluster
@@ -58,18 +68,14 @@ T_EPS = MT_HIT_EPS
 EDGE_EPS = 1e-4        # candidate acceptance slop at shared edges
 BIG = 3.0e37           # finite miss sentinel (inf would NaN in 0*inf)
 MISS_IDX = 2 ** 30     # "no candidate yet" triangle index
-
-# Kernel launches on CUDA tensors, by wrapper; plain-version calls never
-# count.  ``reset_launch_counts`` zeroes them.
-launch_counts = {"cull": 0, "intersect": 0, "cull_pg2": 0, "pgwalk2": 0}
+# ``model_hit(stream=None)`` takes the streamed walks above this many
+# clusters per model: the JAX package's switch point
+# (traversal_pallas.py:1430), kept so both packages take the same branch
+# on the same scene.  Its best value on the GPU is not measured yet.
+STREAM_THRESHOLD_CLUSTERS = 1700
 
 # Memory bound of the plain versions' broadcast temporaries (elements).
 _PLAIN_CHUNK = 1 << 23
-
-
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -258,15 +264,17 @@ def cull(rays8, sbounds, tile: int, plain: bool = False):
 # ---------------------------------------------------------------------------
 
 def intersect_plain(counts, clist, elist, rays8, cb, woop, tile: int,
-                    any_hit: bool = False):
-    """Plain version of B2.  Per tile, walk the listed supers in order;
-    skip a super unless its entry is below the tile gate (the max over the
-    tile's rays of their best t; any-hit: also until every ray is
-    resolved).  A processed super admits each of its 16 clusters that some
-    ray of the tile enters before its current best t, and every admitted
-    cluster's 128 triangles are evaluated.  Returns (t [Np, 1] f32 — best
-    candidate t, t_max on a miss; i [Np, 1] int32 — local triangle id or
-    -1)."""
+                    any_hit: bool = False, count: bool = False):
+    """Plain version of B2 (and of B2s on a padded table, and of B2c with
+    ``count``).  Per tile, walk the listed supers in order; skip a super
+    unless its entry is below the tile gate (the max over the tile's rays
+    of their best t; any-hit: also until every ray is resolved).  A
+    processed super admits each of its 16 clusters that some ray of the
+    tile enters before its current best t, and every admitted cluster's
+    128 triangles are evaluated.  Returns (t [Np, 1] f32 — best candidate
+    t, t_max on a miss; i [Np, 1] int32 — local triangle id or -1), and
+    with ``count`` also ctr [Np/tile, 2] int32: per tile, the supers
+    processed and the clusters evaluated."""
     npad = rays8.shape[0]
     n_tiles = npad // tile
     dev = rays8.device
@@ -282,6 +290,7 @@ def intersect_plain(counts, clist, elist, rays8, cb, woop, tile: int,
     done = torch.zeros((n_tiles,), dtype=torch.bool, device=dev)
     cnt = counts[:, 0]
     lane = torch.arange(CLUSTER, dtype=torch.int32, device=dev)
+    ctr = torch.zeros((n_tiles, 2), dtype=torch.int32, device=dev)
     for j in range(clist.shape[1]):
         gate = (j < cnt) & (elist[:, j] < tbm)
         if any_hit:
@@ -298,6 +307,8 @@ def intersect_plain(counts, clist, elist, rays8, cb, woop, tile: int,
                                    ot, it, fma_form=False)
         enters = (t_near <= t_far) & (t_far >= 0.0) & (sel < bt[tiles][..., None])
         occ16 = enters.any(1)                                # [m, 16]
+        ctr[tiles, 0] += 1
+        ctr[tiles, 1] += occ16.sum(1, dtype=torch.int32)
         for k in range(SUPER):
             sub = occ16[:, k].nonzero()[:, 0]
             step = max(1, _PLAIN_CHUNK // (tile * CLUSTER))
@@ -318,7 +329,20 @@ def intersect_plain(counts, clist, elist, rays8, cb, woop, tile: int,
             done[tiles] = ((bt[tiles] < t_max[tiles])
                            | (t_max[tiles] <= 0.0)).all(1)
     out_i = torch.where(bt < t_max, bi, torch.full_like(bi, -1))
-    return bt.reshape(npad, 1), out_i.reshape(npad, 1)
+    out = bt.reshape(npad, 1), out_i.reshape(npad, 1)
+    return out + (ctr,) if count else out
+
+
+def _intersect_launch(name, counts, clist, elist, rays8, cb, woop, tile,
+                      any_hit, *extra):
+    _check_tile(tile)
+    npad = rays8.shape[0]
+    out_t = torch.empty((npad, 1), dtype=torch.float32, device=rays8.device)
+    out_i = torch.empty((npad, 1), dtype=torch.int32, device=rays8.device)
+    _launch(name, _i32(counts), _i32(clist), _f32(elist), clist.shape[1],
+            _f32(rays8), _f32(cb), _f32(woop), npad // tile, tile,
+            int(any_hit), out_t, out_i, *extra)
+    return out_t, out_i
 
 
 def intersect(counts, clist, elist, rays8, cb, woop, tile: int,
@@ -329,14 +353,42 @@ def intersect(counts, clist, elist, rays8, cb, woop, tile: int,
     if plain or _on_cpu(rays8):
         return intersect_plain(counts, clist, elist, rays8, cb, woop, tile,
                                any_hit)
-    _check_tile(tile)
-    npad = rays8.shape[0]
-    out_t = torch.empty((npad, 1), dtype=torch.float32, device=rays8.device)
-    out_i = torch.empty((npad, 1), dtype=torch.int32, device=rays8.device)
-    _launch("intersect", _i32(counts), _i32(clist), _f32(elist),
-            clist.shape[1], _f32(rays8), _f32(cb), _f32(woop),
-            npad // tile, tile, int(any_hit), out_t, out_i)
-    return out_t, out_i
+    return _intersect_launch("intersect", counts, clist, elist, rays8, cb,
+                             woop, tile, any_hit)
+
+
+def intersect_stream(counts, clist, elist, rays8, cb, woop, tile: int,
+                     any_hit: bool = False, plain: bool = False):
+    """B2s (replaces ``_intersect_kernel`` with ``stream=True``,
+    traversal_pallas.py:1061): B2's contract, with each admitted
+    cluster's Woop rows copied asynchronously into shared memory.  woop
+    [C, 16, 128] with C padded to whole supers (``stream_table``)."""
+    _check_stream_table(woop)
+    if plain or _on_cpu(rays8):
+        return intersect_plain(counts, clist, elist, rays8, cb, woop, tile,
+                               any_hit)
+    return _intersect_launch("intersect_stream", counts, clist, elist, rays8,
+                             cb, woop, tile, any_hit)
+
+
+def intersect_count(counts, clist, elist, rays8, cb, woop, tile: int,
+                    any_hit: bool = False, stream: bool = False,
+                    plain: bool = False):
+    """B2c (replaces ``_intersect_kernel`` with ``count_evals=True``,
+    traversal_pallas.py:1111-1115): B2, or B2s with ``stream``, plus
+    ctr [Np/tile, 2] int32 per tile: supers that passed the gate and the
+    popcount of each processed super's cluster word.  Counting does not
+    change the walk."""
+    if stream:
+        _check_stream_table(woop)
+    if plain or _on_cpu(rays8):
+        return intersect_plain(counts, clist, elist, rays8, cb, woop, tile,
+                               any_hit, count=True)
+    ctr = torch.empty((rays8.shape[0] // tile, 2), dtype=torch.int32,
+                      device=rays8.device)
+    out = _intersect_launch("intersect_count", counts, clist, elist, rays8,
+                            cb, woop, tile, any_hit, int(stream), ctr)
+    return out + (ctr,)
 
 
 # ---------------------------------------------------------------------------
@@ -453,10 +505,30 @@ def pgwalk2(clist, bits, counts, rays8, woop, group: int,
     _check_group(group, rays8.shape[0])
     if plain or _on_cpu(rays8):
         return pgwalk2_plain(clist, bits, counts, rays8, woop, group, any_hit)
+    return _pgwalk2_launch("pgwalk2", clist, bits, counts, rays8, woop, group,
+                           any_hit)
+
+
+def pgwalk2_stream(clist, bits, counts, rays8, woop, group: int,
+                   any_hit: bool = False, plain: bool = False):
+    """B4s (replaces ``_pgwalk2_kernel`` with ``stream=True``,
+    traversal_pallas.py:697): B4's contract, with the group's listed
+    clusters copied asynchronously into shared memory, cluster i+1 while
+    cluster i is evaluated.  woop padded to whole supers
+    (``stream_table``)."""
+    _check_group(group, rays8.shape[0])
+    _check_stream_table(woop)
+    if plain or _on_cpu(rays8):
+        return pgwalk2_plain(clist, bits, counts, rays8, woop, group, any_hit)
+    return _pgwalk2_launch("pgwalk2_stream", clist, bits, counts, rays8, woop,
+                           group, any_hit)
+
+
+def _pgwalk2_launch(name, clist, bits, counts, rays8, woop, group, any_hit):
     npad = rays8.shape[0]
     out_t = torch.empty((npad, 1), dtype=torch.float32, device=rays8.device)
     out_i = torch.empty((npad, 1), dtype=torch.int32, device=rays8.device)
-    _launch("pgwalk2", _i32(clist), _i32(bits), _i32(counts), clist.shape[1],
+    _launch(name, _i32(clist), _i32(bits), _i32(counts), clist.shape[1],
             _f32(rays8), _f32(woop), npad // group, group, int(any_hit),
             out_t, out_i)
     return out_t, out_i
@@ -502,22 +574,11 @@ def _i32(x):
     return x.contiguous()
 
 
-def _launch(name: str, *args) -> None:
-    """Call ``srt_<name>`` of the kernel library on the current stream and
-    raise if the launch failed; tensors go as pointers, ints as ints."""
-    from srt_tpu_torch.ops import cuda_lib
-
-    lib = cuda_lib.load().lib
-    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    cargs = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
-             else ctypes.c_int(a) for a in args]
-    with torch.cuda.device(dev):
-        err = getattr(lib, f"srt_{name}")(*cargs, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"kernel {name} failed to launch: "
-                           f"{cuda_lib.error_string(err)}")
-    launch_counts[name] += 1
+def _check_stream_table(woop) -> None:
+    if woop.shape[0] % SUPER:
+        raise ValueError(f"the streamed walks need the Woop table padded to "
+                         f"whole supers ({woop.shape[0]} clusters); use "
+                         f"stream_table")
 
 
 # ---------------------------------------------------------------------------
@@ -564,6 +625,37 @@ def model_tables(scene, b: int):
     return woop, cb, sbounds, cb8, s_count, n_clusters
 
 
+# Padded Woop slices of the streamed walks: id(table) -> (weak reference
+# to the table, {(first cluster, clusters): padded slice}); an entry is
+# dropped when its table is freed.
+_STREAM_TABLES = {}
+
+
+def stream_table(scene, b: int):
+    """Model ``b``'s Woop slice [C, 16, 128] padded with zero clusters to
+    whole supers, as the streamed walks take it (zero rows: the parallel
+    test ``|zd| <= 0`` holds, so a padding cluster never hits; its NaN
+    box gates it off anyway).  Built once per table: a full-table copy per
+    walk call would be a new cost in every frame."""
+    c_lo = scene.model_first_tri[b] // CLUSTER
+    n_clusters = scene.model_padded_tri_count[b] // CLUSTER
+    woop = scene.woop[c_lo:c_lo + n_clusters]
+    w_pad = -n_clusters % SUPER
+    if not w_pad:
+        return woop
+    table = scene.woop
+    ref, per_table = _STREAM_TABLES.get(id(table), (None, None))
+    if ref is None or ref() is not table:
+        per_table = {}
+        ref = weakref.ref(table,
+                          lambda _, k=id(table): _STREAM_TABLES.pop(k, None))
+        _STREAM_TABLES[id(table)] = ref, per_table
+    if (c_lo, n_clusters) not in per_table:
+        per_table[(c_lo, n_clusters)] = torch.cat(
+            [woop, woop.new_zeros((w_pad,) + tuple(woop.shape[1:]))])
+    return per_table[(c_lo, n_clusters)]
+
+
 def pack_rays(scene, b: int, origins, dirs, t_best, tile: int,
               t_lo: float = 0.0):
     """The walk kernels' ray operand for model ``b``: (rays8 [Np, 8], o_m,
@@ -607,31 +699,32 @@ def model_hit(scene, b: int, origins, dirs, t_best, tile: int = DEFAULT_TILE,
               binned=False, count_evals: bool = False, t_min: float = 0.0,
               plain: bool = False):
     """Closest hit of [3, N] rays against model ``b`` (counterpart of
-    ``pallas_model_hit``).  Returns (t [N], tri_idx [N] int32, u, v).
+    ``pallas_model_hit``).  Returns (t [N], tri_idx [N] int32, u, v), and
+    with ``count_evals`` also the tiled walk's per-tile counters ctr
+    [Np/tile, 2] int32 (``intersect_count``).
 
     ``binned``: False for the tiled walk, ``"pg2:G[:W]"`` for the
     per-group walk at G-ray groups (W is a TPU unroll width with no
-    effect on the result).  ``any_hit`` is the shadow-ray mode: candidate
-    t > ``t_min`` is required and any hit inside t_best may end the walk.
-    ``refine=False`` (or any-hit) returns the kernels' candidate t with
-    zero u/v.  ``plain=True`` runs the plain versions on CUDA tensors (for
-    kernel-vs-plain comparisons only).
+    effect on the result).  ``stream``: None takes the streamed walks for
+    models of more than ``STREAM_THRESHOLD_CLUSTERS`` clusters, as the JAX
+    package does; True/False force them on or off.  ``any_hit`` is the
+    shadow-ray mode: candidate t > ``t_min`` is required and any hit
+    inside t_best may end the walk.  ``refine=False`` (or any-hit) returns
+    the kernels' candidate t with zero u/v.  ``plain=True`` runs the plain
+    versions on CUDA tensors (for kernel-vs-plain comparisons only).
     """
     if scene.woop is None:
         raise ValueError("scene was uploaded without walk tables; use "
                          "flatten_models(..., pad_to=128) + upload()")
-    if stream:
-        raise NotImplementedError("streamed Woop tables (B2s/B4s) are not "
-                                  "ported yet: ROADMAP.md queue B")
-    if count_evals:
-        raise NotImplementedError("count_evals counters (B2c) are not "
-                                  "ported yet: ROADMAP.md queue B")
     if binned is True or binned == "binned":
         raise NotImplementedError("the binned walk (B5) is not ported yet: "
                                   "ROADMAP.md queue B")
     if binned == "pg":
         raise NotImplementedError("the pg v1 walk (B6/B7) is not ported "
                                   "yet: ROADMAP.md queue B")
+    if count_evals and binned:
+        raise ValueError("count_evals instrumentation covers the tiled walk "
+                         "only")
     group = 0
     if isinstance(binned, str):
         if not binned.startswith("pg2:"):
@@ -639,7 +732,11 @@ def model_hit(scene, b: int, origins, dirs, t_best, tile: int = DEFAULT_TILE,
         group = int(binned.split(":")[1])
 
     lo = scene.model_first_tri[b]
-    woop, cb, sbounds, cb8, s_count, _ = model_tables(scene, b)
+    woop, cb, sbounds, cb8, s_count, n_clusters = model_tables(scene, b)
+    if stream is None:
+        stream = n_clusters > STREAM_THRESHOLD_CLUSTERS
+    if stream:
+        woop = stream_table(scene, b)
     rays8, o_m, d_m = pack_rays(scene, b, origins, dirs, t_best, tile,
                                 t_min if any_hit else 0.0)
     n = origins.shape[1]
@@ -648,8 +745,9 @@ def model_hit(scene, b: int, origins, dirs, t_best, tile: int = DEFAULT_TILE,
 
     if group and s_count > 1:
         clist, bits, counts = cull_pg2(rays8, cb8, s_count, group, plain)
-        out_t, out_i = pgwalk2(clist, bits, counts, rays8, woop, group,
-                               any_hit, plain)
+        walk = pgwalk2_stream if stream else pgwalk2
+        out_t, out_i = walk(clist, bits, counts, rays8, woop, group, any_hit,
+                            plain)
     else:
         if s_count == 1:
             # One super: the list is trivial; the cluster gate culls.
@@ -661,8 +759,14 @@ def model_hit(scene, b: int, origins, dirs, t_best, tile: int = DEFAULT_TILE,
                                 device=dev)
         else:
             clist, elist, counts = cull(rays8, sbounds, tile, plain)
-        out_t, out_i = intersect(counts, clist, elist, rays8, cb, woop,
-                                 tile, any_hit, plain)
+        if count_evals:
+            out_t, out_i, ctr = intersect_count(
+                counts, clist, elist, rays8, cb, woop, tile, any_hit, stream,
+                plain)
+        else:
+            walk = intersect_stream if stream else intersect
+            out_t, out_i = walk(counts, clist, elist, rays8, cb, woop, tile,
+                                any_hit, plain)
     out_t = out_t[:n, 0]
     out_i = out_i[:n, 0]
 
@@ -671,11 +775,13 @@ def model_hit(scene, b: int, origins, dirs, t_best, tile: int = DEFAULT_TILE,
     inf = torch.full_like(out_t, float("inf"))
     if any_hit or not refine:
         zeros = torch.zeros_like(out_t)
-        return torch.where(hit, out_t, inf), idx, zeros, zeros
-    w = torch.clamp_min(idx, 0).long()
-    v0 = scene.tri_v0[w].T
-    t, u, v = mt_refine(o_m, d_m, v0, scene.tri_v1[w].T - v0,
-                        scene.tri_v2[w].T - v0)
-    zeros = torch.zeros_like(t)
-    return (torch.where(hit, t, inf), idx, torch.where(hit, u, zeros),
-            torch.where(hit, v, zeros))
+        out = (torch.where(hit, out_t, inf), idx, zeros, zeros)
+    else:
+        w = torch.clamp_min(idx, 0).long()
+        v0 = scene.tri_v0[w].T
+        t, u, v = mt_refine(o_m, d_m, v0, scene.tri_v1[w].T - v0,
+                            scene.tri_v2[w].T - v0)
+        zeros = torch.zeros_like(t)
+        out = (torch.where(hit, t, inf), idx, torch.where(hit, u, zeros),
+               torch.where(hit, v, zeros))
+    return out + (ctr,) if count_evals else out

@@ -29,7 +29,7 @@ from srt_tpu.utils.flatten import flatten_models as jax_flatten
 from srt_tpu_torch.config import CameraConfig, RenderConfig
 from srt_tpu_torch.models import fastpath, mesh, pathtracer
 from srt_tpu_torch.models.wavefront_compact import trace_image_compact
-from srt_tpu_torch.ops import traversal
+from srt_tpu_torch.ops import rng, traversal
 from srt_tpu_torch.ops.rng import ArrayStream, host_uniforms, total_slots
 from srt_tpu_torch.scene import lights_from_arrays
 from tests.test_torch_traversal import exact_reciprocal  # noqa: F401
@@ -158,7 +158,7 @@ def test_render_plan_walk_matches_dense(port_scene, spp):
     for method in ("walk", "dense"):
         plan = fastpath.make_render_plan(port_scene, model_scene_lights(),
                                          cam, cfg, method=method)
-        img, stats, overflow = plan.render(torch.Generator().manual_seed(2))
+        img, stats, overflow = plan.render(rng.key(2))
         assert int(overflow) == 0 and stats.shape == (3, 2)
         assert bool(torch.isfinite(img).all()) and int(stats.sum()) > 0
         imgs[method] = img

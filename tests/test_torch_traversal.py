@@ -268,8 +268,7 @@ def test_model_hit_matches_shipped_pallas(scenes, shipped_pallas, walk):
 def test_unported_modes_raise(scenes):
     _, ps = scenes
     _, (o, d, t) = ray_batch(3, False)
-    for kw in (dict(stream=True), dict(binned=True), dict(binned="pg"),
-               dict(count_evals=True)):
+    for kw in (dict(binned=True), dict(binned="pg")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tr.model_hit(ps, 0, o, d, t, tile=TILE, **kw)
 
