@@ -36,14 +36,29 @@ Phases, one line each; the last line is printed only when all pass:
 7. Eval counters (B2c) on the full-frame primaries of both scenes through
    ``model_hit(count_evals=True)``: equal to the plain counters; mean
    supers processed and clusters evaluated per tile.
+8. The pair-binned and mask-scan walks on the headline scene.  (a) B5,
+   B6 and B7 against their plain versions at 65,536 rays (bounce rays,
+   tile 128, a third dead; primaries; shadow segments), and the pair
+   tiles of ``binned_pairs`` through B2 against plain B2; (b) the
+   headline render with ``walks="tiled@256,binned"``,
+   ``walks_shadow="binned"``: one replayed frame and 10 timed frames as
+   in phase 4, printing per frame the walk calls that took the pair
+   branch, those that fell back, and total / capacity of each call; the
+   pair branch must be taken; (c) the same with ``"pg"``; (d)
+   ``model_hit(binned=True, pair_factor=1)`` on the bounce rays falls
+   back once and equals the tiled walk exactly.
 
-Each path (the headline frames, the config8 frames, the counter run) is
-driven with the launch counts set to 0 just before it and read just
-after; every kernel must be launched by its path.
+Each path (the headline frames, the config8 frames, the counter run, the
+binned frames, the pg frames) is driven with the launch counts set to 0
+just before it and read just after; every kernel must be launched by its
+path.  Every kernel case also prints its bound: the larger of the bytes
+its inputs and outputs must move over 3.35 TB/s and the operations these
+inputs need over 67 TFLOP/s (FP32 outside the tensor cores; the H100 SXM
+data sheet's peaks, as the on-chip-measurement guide lists them).
 
 ``--profile PATH`` also writes ``torch.profiler`` tables of one more
-headline frame and one more config8 frame to PATH (the source of PERF.md
-section 5).
+frame of each render (headline, config8, binned, pg) to PATH (the source
+of PERF.md section 5).
 """
 
 from __future__ import annotations
@@ -76,12 +91,19 @@ KERNELS = {
     # Not a TPU kernel: JAX's threefry (XLA), srt_tpu/ops/rng.py:48.
     "threefry": ("rng", "srt_tpu_torch/csrc/threefry.cu",
                  "srt_tpu/ops/rng.py:48"),
+    "cull_perray": ("traversal", "srt_tpu_torch/csrc/cull_perray.cu",
+                    f"{TP}:284"),
+    "cull_gmask": ("traversal", "srt_tpu_torch/csrc/cull_gmask.cu",
+                   f"{TP}:436"),
+    "pgwalk": ("traversal", "srt_tpu_torch/csrc/pgwalk.cu", f"{TP}:937"),
 }
 # The path whose run gives each kernel's launch count.
 HEADLINE_PATH = ("cull", "intersect", "cull_pg2", "pgwalk2", "threefry")
 CONFIG8_PATH = ("cull", "intersect_stream", "cull_pg2", "pgwalk2_stream",
                 "threefry")
 COUNTER_PATH = ("intersect_count",)
+BINNED_PATH = ("cull", "intersect", "cull_perray", "threefry")
+PG_PATH = ("cull", "intersect", "cull_gmask", "pgwalk", "threefry")
 HEADLINE_CAMERA = dict(origin=(0.0, 1.0, 5.0), look_at=(0.0, 0.0, 0.0))
 # Sizes: scenes (uv_sphere rows, cols), frame widths, kernel-case rays,
 # threefry block columns.
@@ -93,7 +115,24 @@ CASE_RAYS, THREEFRY_COLS = 65536, 1 << 20
 FLOAT_OUTPUTS = {"cull": (1,), "intersect": (0,), "cull_pg2": (),
                  "pgwalk2": (0,), "intersect_stream": (0,),
                  "pgwalk2_stream": (0,), "intersect_count": (0,),
-                 "threefry": (0,)}
+                 "threefry": (0,), "cull_perray": (0,), "cull_gmask": (),
+                 "pgwalk": (0,)}
+# Bounds: NVIDIA's H100 SXM peaks (on-chip-measurement guide) and the
+# operations per unit of work, read from the CUDA sources: a slab test
+# (traversal_common.cuh ``slab``: 6 subtractions, 6 multiplies, 11
+# minima/maxima, 3 compares) per (ray, box); a Woop evaluation
+# (``woop_eval`` plus the walk's merge: 43 multiplies and adds, a
+# division, 8 compares, minima and sign operations) per (ray, triangle);
+# a threefry lattice point (threefry.cu: 20 rounds of add, rotate, xor,
+# 5 key injections of 3 adds, 11 more for the key schedule, the lattice
+# index and the float).  Operations count at the FP32 rate, the only
+# CUDA-core rate of the table; built with -fmad=false, no multiply-add
+# fuses, so the card issues these at most at half that rate.
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = 67e12
+SLAB_OPS = 26
+WOOP_OPS = 52
+THREEFRY_OPS = 86
 
 
 class SmokeFailure(Exception):
@@ -189,18 +228,27 @@ def primary_rays(scene, size, tile):
 
 def walk_rays(scene):
     """Kernel-case rays: primaries (256x256, tile 256) and bounce-like rays
-    (random origins around the sphere aimed at points inside it, a third
-    dead, in the integrator's 6-D coherence order; tile 128) for closest
-    hits and as shadow segments."""
+    (``bounce_rays``; tile 128) for closest hits and as shadow segments."""
+    from srt_tpu_torch.ops import traversal as tr
+    size = int(CASE_RAYS ** 0.5)
+    prim8 = primary_rays(scene, size, 256)[2]
+    bo, bd, t_closest, t_seg = bounce_rays(scene)
+    bounce8, _, _ = tr.pack_rays(scene, 0, bo, bd, t_closest, 128)
+    shadow8, _, _ = tr.pack_rays(scene, 0, bo, bd, t_seg, 128, t_lo=1e-3)
+    return prim8, bounce8, shadow8
+
+
+def bounce_rays(scene):
+    """CASE_RAYS bounce-like rays: random origins around the sphere aimed
+    at points inside it, a third dead, in the integrator's 6-D coherence
+    order: (origins [3, N], dirs [3, N], closest-hit t_max, shadow-segment
+    t_max)."""
     import numpy as np
     import torch
 
     from srt_tpu_torch.models.pathtracer import _bounce_sort_keys
-    from srt_tpu_torch.ops import traversal as tr
     dev = scene.device
     n = CASE_RAYS
-    size = int(n ** 0.5)
-    prim8 = primary_rays(scene, size, 256)[2]
     rng = np.random.default_rng(0)
     ro = rng.uniform(-4.0, 4.0, (n, 3)).astype(np.float32)
     ro += np.sign(ro) * 2.0
@@ -215,9 +263,57 @@ def walk_rays(scene):
     seg = torch.as_tensor(rng.uniform(1.0, 6.0, n).astype(np.float32),
                           device=dev)[order]
     t_seg = torch.where(alive, seg, 0.0)
-    bounce8, _, _ = tr.pack_rays(scene, 0, bo, bd, t_closest, 128)
-    shadow8, _, _ = tr.pack_rays(scene, 0, bo, bd, t_seg, 128, t_lo=1e-3)
-    return prim8, bounce8, shadow8
+    return bo, bd, t_closest, t_seg
+
+
+def nbytes(*xs):
+    return sum(x.numel() * x.element_size() for x in xs)
+
+
+def popcount(words):
+    """Set bits of the low 16 bits of each word, summed."""
+    w = words.long() & 0xFFFF
+    return sum(int(((w >> k) & 1).sum()) for k in range(16))
+
+
+def bound_of(name, args, out):
+    """(bound_ms, bound_by) of one kernel call: the larger of the bytes
+    its tensor inputs and outputs must move (each once) over the card's
+    memory rate and the operations these inputs need over its FP32 rate.
+    The walks count the clusters their gates admit on these inputs (B2:
+    B2c's counters on the same call; B4, B7: the set bits of the words
+    they walk); the culls count the live rays' slab tests."""
+    import torch
+
+    from srt_tpu_torch.ops import traversal as tr
+    out = as_tuple(out)
+    moved = nbytes(*[v for v in args.values() if torch.is_tensor(v)], *out)
+    if name == "threefry":
+        ops = out[0].numel() * THREEFRY_OPS
+    else:
+        live = int((args["rays8"][:, 6] > 0).sum())
+    if name in ("cull", "cull_perray"):
+        ops = live * args["sbounds"].shape[1] * SLAB_OPS
+    elif name in ("cull_pg2", "cull_gmask"):
+        ops = live * args["s_count"] * tr.SUPER * SLAB_OPS
+    elif name.startswith("intersect"):
+        ctr = out[2] if name == "intersect_count" else tr.intersect_count(
+            args["counts"], args["clist"], args["elist"], args["rays8"],
+            args["cb"], args["woop"], args["tile"], args["any_hit"],
+            stream=name == "intersect_stream")[2]
+        supers, clusters = ctr.sum(0).tolist()
+        ops = args["tile"] * (supers * tr.SUPER * SLAB_OPS
+                              + clusters * tr.CLUSTER * WOOP_OPS)
+    elif name.startswith("pgwalk2"):
+        listed = (torch.arange(args["clist"].shape[1],
+                               device=args["bits"].device)[None, :]
+                  < args["counts"])
+        words = torch.where(listed, args["bits"], 0)
+        ops = popcount(words) * args["group"] * tr.CLUSTER * WOOP_OPS
+    elif name == "pgwalk":
+        ops = popcount(args["mask"]) * tr.GROUP * tr.CLUSTER * WOOP_OPS
+    b_ms, o_ms = moved / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
 class Cases:
@@ -227,16 +323,24 @@ class Cases:
         self.card = card
         self.results = {k: {"cases": []} for k in KERNELS}
 
-    def run(self, tag, name, case, kernel_fn, plain_fn):
-        k_ms, k_out = timed_median(kernel_fn)
-        p_ms, p_out = timed_median(plain_fn)
+    def run(self, tag, name, case, *args, **kw):
+        """Time the kernel wrapper ``name`` on ``args`` and its plain
+        version on the same inputs, check them equal, compute the call's
+        bound; returns the kernel's output."""
+        fn = getattr(kernel_module(name), name)
+        bound = inspect.signature(fn).bind(*args, **kw)
+        bound.apply_defaults()
+        k_ms, k_out = timed_median(lambda: fn(*args, **kw))
+        p_ms, p_out = timed_median(lambda: fn(*args, **kw, plain=True))
         err = compare(name, case, k_out, p_out)
-        self.results[name]["cases"].append(dict(case=case, ms=k_ms,
-                                                plain_ms=p_ms,
-                                                max_abs_err=err))
+        b_ms, b_by = bound_of(name, dict(bound.arguments), k_out)
+        self.results[name]["cases"].append(dict(
+            case=case, ms=k_ms, plain_ms=p_ms, max_abs_err=err,
+            bound_ms=b_ms, bound_by=b_by))
         print(f"[{tag}] {name:16s} {case:40s} kernel {k_ms:9.3f} ms  plain "
-              f"{p_ms:9.3f} ms  equal (max_abs_err {err})  [{self.card}]",
-              flush=True)
+              f"{p_ms:9.3f} ms  bound {b_ms:.5f} ms ({b_by}, "
+              f"{100 * b_ms / k_ms:.2f}% reached)  equal (max_abs_err "
+              f"{err})  [{self.card}]", flush=True)
         return k_out
 
     def replayed(self, name, case, p_ms, err):
@@ -256,47 +360,31 @@ def phase_kernels(scene, cases):
     woop, cb, sbounds, cb8, s_count, _ = tr.model_tables(scene, 0)
     prim8, bounce8, shadow8 = walk_rays(scene)
     n = bounce8.shape[0]
-    clist, elist, counts = cases.run(
-        3, "cull", "primary tile 256",
-        lambda: tr.cull(prim8, sbounds, 256),
-        lambda: tr.cull(prim8, sbounds, 256, plain=True))
+    clist, elist, counts = cases.run(3, "cull", "primary tile 256", prim8,
+                                     sbounds, 256)
     for any_hit in (False, True):
         kind = "any" if any_hit else "closest"
-        cases.run(
-            3, "intersect", f"primary tile 256 {kind}-hit",
-            lambda: tr.intersect(counts, clist, elist, prim8, cb, woop, 256,
-                                 any_hit),
-            lambda: tr.intersect(counts, clist, elist, prim8, cb, woop, 256,
-                                 any_hit, plain=True))
+        cases.run(3, "intersect", f"primary tile 256 {kind}-hit", counts,
+                  clist, elist, prim8, cb, woop, 256, any_hit)
     for group in (128, 32):
         for any_hit, rays8 in ((False, bounce8), (True, shadow8)):
             kind = "any" if any_hit else "closest"
-            pg = cases.run(
-                3, "cull_pg2", f"bounce G={group} {kind}-hit rays",
-                lambda: tr.cull_pg2(rays8, cb8, s_count, group),
-                lambda: tr.cull_pg2(rays8, cb8, s_count, group, plain=True))
-            cases.run(
-                3, "pgwalk2", f"bounce G={group} {kind}-hit",
-                lambda: tr.pgwalk2(*pg, rays8, woop, group, any_hit),
-                lambda: tr.pgwalk2(*pg, rays8, woop, group, any_hit,
-                                   plain=True))
+            pg = cases.run(3, "cull_pg2", f"bounce G={group} {kind}-hit rays",
+                           rays8, cb8, s_count, group)
+            cases.run(3, "pgwalk2", f"bounce G={group} {kind}-hit", *pg,
+                      rays8, woop, group, any_hit)
     hits = int((tr.pgwalk2(*tr.cull_pg2(bounce8, cb8, s_count, 32), bounce8,
                            woop, 32)[1] >= 0).sum())
     check(hits > n // 4, f"only {hits} of {n} bounce rays hit the sphere")
-    cases.run(
-        3, "intersect_count", "headline primary tile 256 closest-hit",
-        lambda: tr.intersect_count(counts, clist, elist, prim8, cb, woop, 256),
-        lambda: tr.intersect_count(counts, clist, elist, prim8, cb, woop, 256,
-                                   plain=True))
+    cases.run(3, "intersect_count", "headline primary tile 256 closest-hit",
+              counts, clist, elist, prim8, cb, woop, 256)
 
+    # SlotBlock.full() and rows_at() are these two threefry calls.
     n, sub = THREEFRY_COLS, rng.fold_in(rng.key(0, scene.device), 1)
-    block = rng.SlotBlock(sub, 18, n)
-    cases.run(3, "threefry", f"full() 18 x {n}", block.full,
-              lambda: rng.threefry(sub, 0, 18, n, plain=True))
+    cases.run(3, "threefry", f"full() 18 x {n}", sub, 0, 18, n)
     cols = torch.randperm(n, device=scene.device)
-    cases.run(3, "threefry", f"rows_at(0, 18, {n} permuted cols)",
-              lambda: block.rows_at(0, 18, cols),
-              lambda: rng.threefry(sub, 0, 18, n, cols, plain=True))
+    cases.run(3, "threefry", f"rows_at(0, 18, {n} permuted cols)", sub, 0,
+              18, n, cols)
 
 
 @contextlib.contextmanager
@@ -330,11 +418,14 @@ def recorded_launches():
 
 def replay_frame(tag, plan, cases, key):
     """Render one untimed frame recording every kernel launch, replay each
-    through its plain version; returns the set of kernels launched."""
+    through its plain version, and time each launch again on its recorded
+    inputs (median of 5) beside its bound; prints the per-frame sums by
+    kernel and returns the set of kernels launched."""
     import torch
     with recorded_launches() as calls:
         plan.render(key)
     torch.cuda.synchronize()
+    per_frame = {}
     for k, (name, args, k_out) in enumerate(calls):
         check(not args["plain"], f"{name}: the render path ran the plain "
                                  f"version")
@@ -346,26 +437,38 @@ def replay_frame(tag, plan, cases, key):
         else:
             rays8 = args["rays8"]
             mode = (f"G={args['group']}" if "group" in args
-                    else f"tile {args['tile']}")
+                    else f"tile {args['tile']}" if "tile" in args
+                    else "G=8")
             if "any_hit" in args:
                 mode += " any-hit" if args["any_hit"] else " closest-hit"
             case = (f"frame launch {k}: {rays8.shape[0]} rays "
                     f"({int((rays8[:, 6] > 0).sum())} live), {mode}")
+        fn = getattr(kernel_module(name), name)
         t0 = time.perf_counter()
-        p_out = getattr(kernel_module(name), name)(**{**args, "plain": True})
+        p_out = fn(**{**args, "plain": True})
         torch.cuda.synchronize()
         p_ms = (time.perf_counter() - t0) * 1e3
         err = compare(name, case, k_out, p_out)
         cases.replayed(name, case, p_ms, err)
-        print(f"[{tag}] {name:16s} {case:56s} equals plain (plain "
-              f"{p_ms:.1f} ms, max_abs_err {err})  [{cases.card}]",
-              flush=True)
-    return {name for name, _, _ in calls}
+        k_ms = timed_median(lambda: fn(**args), reps=5)[0]
+        b_ms, b_by = bound_of(name, args, k_out)
+        acc = per_frame.setdefault(name, [0, 0.0, 0.0, 0.0])
+        for q, v in enumerate((1, k_ms, b_ms, p_ms)):
+            acc[q] += v
+        print(f"[{tag}] {name:16s} {case:56s} kernel {k_ms:.4f} ms, bound "
+              f"{b_ms:.5f} ms ({b_by}); equals plain (plain {p_ms:.1f} ms, "
+              f"max_abs_err {err})  [{cases.card}]", flush=True)
+    for name, (n, k_ms, b_ms, p_ms) in per_frame.items():
+        print(f"[{tag}] per frame {name:16s} {n:2d} launches, kernel "
+              f"{k_ms:.4f} ms, bound {b_ms:.5f} ms ({100 * b_ms / k_ms:.2f}% "
+              f"reached), plain {p_ms:.1f} ms  [{cases.card}]", flush=True)
+    return set(per_frame)
 
 
-def timed_frames(tag, plan, cases, path, size, label):
+def timed_frames(tag, plan, cases, path, size, label, after_frame=None):
     """Ten timed frames (keys 1..10) with the launch counts zeroed just
-    before and read just after; checks and prints the frame results."""
+    before and read just after; checks and prints the frame results.
+    ``after_frame(i)``, if given, runs after frame i's timing ends."""
     import torch
 
     from srt_tpu_torch.ops import rng
@@ -382,6 +485,8 @@ def timed_frames(tag, plan, cases, path, size, label):
         times.append(time.perf_counter() - t0)
         check(int(overflow) == 0, f"{label} frame {i}: overflow "
                                   f"{int(overflow)}")
+        if after_frame:
+            after_frame(i)
     launches = dict(tr.launch_counts)
     for name in path:
         check(launches[name] > 0, f"kernel {name} never launched by the "
@@ -513,27 +618,19 @@ def stream_cases(scene, cases):
     clist, elist, counts = tr.cull(prim8, sbounds, 256)
     for any_hit in (False, True):
         kind = "any" if any_hit else "closest"
-        cases.run(
-            "6a", "intersect_stream", f"config8 primary tile 256 {kind}-hit",
-            lambda: tr.intersect_stream(counts, clist, elist, prim8, cb,
-                                        woop_s, 256, any_hit),
-            lambda: tr.intersect_stream(counts, clist, elist, prim8, cb,
-                                        woop_s, 256, any_hit, plain=True))
+        cases.run("6a", "intersect_stream",
+                  f"config8 primary tile 256 {kind}-hit", counts, clist,
+                  elist, prim8, cb, woop_s, 256, any_hit)
     for group in (128, 32):
         for any_hit, rays8 in ((False, bounce8), (True, shadow8)):
             kind = "any" if any_hit else "closest"
             pg = tr.cull_pg2(rays8, cb8, s_count, group)
-            cases.run(
-                "6a", "pgwalk2_stream", f"config8 bounce G={group} {kind}-hit",
-                lambda: tr.pgwalk2_stream(*pg, rays8, woop_s, group, any_hit),
-                lambda: tr.pgwalk2_stream(*pg, rays8, woop_s, group, any_hit,
-                                          plain=True))
-    cases.run(
-        "6a", "intersect_count", "config8 primary tile 256 stream closest-hit",
-        lambda: tr.intersect_count(counts, clist, elist, prim8, cb, woop_s,
-                                   256, stream=True),
-        lambda: tr.intersect_count(counts, clist, elist, prim8, cb, woop_s,
-                                   256, stream=True, plain=True))
+            cases.run("6a", "pgwalk2_stream",
+                      f"config8 bounce G={group} {kind}-hit", *pg, rays8,
+                      woop_s, group, any_hit)
+    cases.run("6a", "intersect_count",
+              "config8 primary tile 256 stream closest-hit", counts, clist,
+              elist, prim8, cb, woop_s, 256, stream=True)
 
 
 def resident_vs_stream(label, scene, card):
@@ -658,6 +755,139 @@ def phase_counters(scenes, cases):
               flush=True)
 
 
+def binned_cases(scene, cases):
+    """Phase 8a: B5, B6, B7 and the pair tiles through B2 against their
+    plain versions on the headline tables."""
+    import torch
+
+    from srt_tpu_torch.ops import traversal as tr
+
+    woop, cb, sbounds, cb8, s_count, _ = tr.model_tables(scene, 0)
+    prim8, bounce8, shadow8 = walk_rays(scene)
+    for label, rays8 in (("bounce (a third dead)", bounce8),
+                         ("primary (live)", prim8)):
+        cases.run("8a", "cull_perray", f"{label} rays", rays8, sbounds)
+        cases.run("8a", "cull_gmask", f"{label} rays", rays8, cb8, s_count)
+    for any_hit, label, rays8 in ((False, "bounce closest", bounce8),
+                                  (True, "shadow any", shadow8),
+                                  (False, "primary closest", prim8)):
+        mask = tr.cull_gmask(rays8, cb8, s_count)
+        cases.run("8a", "pgwalk", f"{label}-hit", mask, rays8, woop, any_hit)
+    # These random rays need more pair slots than the frames' 8 per group:
+    # each case takes the smallest pair_factor that holds its pairs.
+    tile = 128
+    gpt = tile // tr.GROUP
+    for any_hit, label, rays8 in ((False, "bounce closest", bounce8),
+                                  (True, "shadow any", shadow8)):
+        e = tr.cull_perray(rays8, sbounds)
+        n_groups = rays8.shape[0] // tr.GROUP
+        full = tr.pair_capacity(n_groups, s_count, gpt, s_count)
+        factor = -(-int(tr.binned_pairs(e, gpt, full)[3]) // n_groups)
+        p_cap = tr.pair_capacity(n_groups, s_count, gpt, factor)
+        pair_grp, tile_super, tile_counts, total = tr.binned_pairs(e, gpt,
+                                                                   p_cap)
+        check(int(total) <= p_cap, f"{label}: {int(total)} pairs overflow "
+                                   f"{p_cap}")
+        pair_rays = tr.pair_rays(rays8, pair_grp)
+        elist0 = torch.zeros((p_cap // gpt, 1), device=rays8.device)
+        cases.run("8a", "intersect",
+                  f"pair tiles {label}-hit ({int(total)}/{p_cap} slots, "
+                  f"pair_factor {factor})",
+                  tile_counts, tile_super, elist0, pair_rays, cb, woop, tile,
+                  any_hit)
+
+
+@contextlib.contextmanager
+def pair_log():
+    """While the block runs, record each ``binned_pairs`` call's (total,
+    capacity): yields the list."""
+    from srt_tpu_torch.ops import traversal as tr
+    log = []
+    fn = tr.binned_pairs
+
+    def call(e_group, gpt, p_cap):
+        out = fn(e_group, gpt, p_cap)
+        log.append((out[3], p_cap))
+        return out
+    tr.binned_pairs = call
+    try:
+        yield log
+    finally:
+        tr.binned_pairs = fn
+
+
+def walk_render(tag, scene, cases, walk, path, profile):
+    """Phases 8b, 8c: the headline render with ``walk`` for every bounce
+    after the primaries and for every shadow batch: one replayed frame,
+    then 10 timed frames, each printing its pair-branch decisions."""
+    import torch
+
+    from srt_tpu_torch.config import CameraConfig, RenderConfig
+    from srt_tpu_torch.models.fastpath import make_render_plan
+    from srt_tpu_torch.ops import rng
+    from srt_tpu_torch.scene import model_scene_lights
+
+    dev = scene.device
+    cam = CameraConfig(width=HEADLINE_SIZE, height=HEADLINE_SIZE,
+                       **HEADLINE_CAMERA)
+    cfg = RenderConfig(max_depth=4, rr_bounces=0, spp=1)
+    t0 = time.perf_counter()
+    plan = make_render_plan(scene, model_scene_lights(dev), cam, cfg,
+                            walks=f"tiled@256,{walk}", walks_shadow=walk)
+    torch.cuda.synchronize()
+    print(f"[{tag}] plan walks=tiled@256,{walk} walks_shadow={walk}: probe "
+          f"+ schedule discovery {time.perf_counter() - t0:.3f} s, schedule "
+          f"{plan.schedule}", flush=True)
+    launched = replay_frame(tag, plan, cases, rng.key(0, dev))
+    check(launched == set(path),
+          f"the untimed {walk} frame launched {sorted(launched)}")
+    with pair_log() as log:
+        def after_frame(i):
+            calls = [(int(total), p_cap) for total, p_cap in log]
+            log.clear()
+            if walk == "binned":
+                n_pairs = sum(total <= p_cap for total, p_cap in calls)
+                print(f"[{tag}] frame {i}: {n_pairs} walk calls took the "
+                      f"pair branch, {len(calls) - n_pairs} fell back; "
+                      f"total/capacity "
+                      f"{', '.join(f'{t}/{c}' for t, c in calls)}",
+                      flush=True)
+        launches, dt = timed_frames(
+            tag, plan, cases, path, HEADLINE_SIZE,
+            f"headline walks=tiled@256,{walk} ({HEADLINE_SIZE}x"
+            f"{HEADLINE_SIZE}, spp 1, 4 bounces)", after_frame)
+    if walk == "binned":
+        check(launches["binned_pairs"] > 0,
+              "no binned walk call took the pair branch")
+    if profile:
+        profile_frame(plan, f"headline {walk}", dt, profile)
+
+
+def phase_binned(scene, cases, profile):
+    """Phase 8: the pair-binned and mask-scan walks."""
+    import torch
+
+    from srt_tpu_torch.ops import traversal as tr
+
+    binned_cases(scene, cases)
+    walk_render("8b", scene, cases, "binned", BINNED_PATH, profile)
+    walk_render("8c", scene, cases, "pg", PG_PATH, profile)
+    bo, bd, t_closest, _ = bounce_rays(scene)
+    tr.reset_launch_counts()
+    got = tr.model_hit(scene, 0, bo, bd, t_closest, tile=128, binned=True,
+                       pair_factor=1)
+    counts = (tr.launch_counts["binned_fallback"],
+              tr.launch_counts["binned_pairs"])
+    check(counts == (1, 0), f"pair_factor=1: (fallbacks, pair calls) "
+                            f"{counts}, expected (1, 0)")
+    ref = tr.model_hit(scene, 0, bo, bd, t_closest, tile=128)
+    check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+          "the pair_factor=1 fallback differs from the tiled walk")
+    print(f"[8d] model_hit(binned=True, pair_factor=1) on {bo.shape[1]} "
+          f"bounce rays: one fallback, equal to the tiled walk "
+          f"({int((ref[1] >= 0).sum())} hits)  [{cases.card}]", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="PATH")
@@ -715,7 +945,12 @@ def main(argv=None) -> int:
     phase_config8(scene8, scene, cases, args.profile)
     phase_counters({"headline": (scene, HEADLINE_SIZE),
                     "config8": (scene8, CONFIG8_SIZE)}, cases)
+    del scene8
+    phase_binned(scene, cases, args.profile)
 
+    # Each kernel's first case: ms, plain ms and bound of one call.  No
+    # single PyTorch call computes a cull, a walk or the threefry lattice,
+    # so library_ms is null for every kernel.
     kernels = []
     for k, (_, src, replaces) in KERNELS.items():
         rec = cases.results[k]
@@ -724,8 +959,10 @@ def main(argv=None) -> int:
             name=k, route="cuda", source=src, replaces=replaces,
             launches=rec["launches"],
             max_abs_err=max(c["max_abs_err"] for c in rec["cases"]),
-            ms=first["ms"], plain_ms=first["plain_ms"]))
-    print(f"[8] all phases passed in {time.perf_counter() - t_start:.1f} s",
+            ms=first["ms"], plain_ms=first["plain_ms"],
+            bound_ms=first["bound_ms"], bound_by=first["bound_by"],
+            library_ms=None))
+    print(f"[9] all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,7 @@ import math
 import torch
 
 from srt_tpu_torch.config import CameraConfig
+from srt_tpu_torch.devices import resolve
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,8 +39,11 @@ def camera_basis(origin, look_at, v_up):
     return right, up, -front
 
 
-def derive_viewport(cfg: CameraConfig, device="cpu") -> Viewport:
-    """Build the Viewport from a CameraConfig (``GetCamera`` analog)."""
+def derive_viewport(cfg: CameraConfig, device=None) -> Viewport:
+    """Build the Viewport from a CameraConfig (``GetCamera`` analog) on
+    ``device`` (None: the card, ``devices.resolve``)."""
+    device = resolve(device)
+
     def vec3(x):
         return torch.as_tensor(x, dtype=torch.float32, device=device)
 

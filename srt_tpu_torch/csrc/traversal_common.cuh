@@ -1,5 +1,6 @@
 // Shared device code of the walk kernels (cull.cu, intersect.cu,
-// cull_pg2.cu, pgwalk2.cu): constants, NaN-propagating min/max, the slab
+// cull_pg2.cu, pgwalk2.cu, cull_perray.cu, cull_gmask.cu, pgwalk.cu):
+// constants, NaN-propagating min/max, the slab
 // test, the Woop unit-triangle evaluation and the streamed walks'
 // double-buffered async copy stage.  The arithmetic matches the
 // plain PyTorch versions in srt_tpu_torch/ops/traversal.py operation for
@@ -74,8 +75,8 @@ __device__ __forceinline__ bool slab(float lx, float ly, float lz, float hx,
   return (t_near <= t_far) && (t_far >= 0.f) && (*sel < bound);
 }
 
-// Woop unit-triangle test of lane l of a cluster staged in shared memory
-// as [13][128].  NESTED folds the affine rows right to left (the per-group
+// Woop unit-triangle test of lane l of a cluster's [13][128] rows (staged
+// in shared memory, or the table in global memory).  NESTED folds the affine rows right to left (the per-group
 // walk's order), else left to right (the tiled walk's).  About 24
 // multiply-adds per (ray, triangle) plus one division.
 template <bool NESTED>

@@ -36,9 +36,9 @@ from srt_tpu_torch.scene import Lights
 def parse_walk(tok: str):
     """Parse one walk token -> (binned_mode, kernel_tile).
 
-    Tokens: ``"tiled"`` | ``"tiled@N"`` | ``"binned"`` | ``"pg"`` |
-    ``"pg2:G"`` | ``"pg2:G:W"``.  (``binned`` and ``pg`` parse but their
-    walks are not ported yet.)"""
+    Tokens: ``"tiled"`` | ``"tiled@N"`` (kernel tile N) | ``"binned"``
+    (the pair-binned walk) | ``"pg"`` (the mask-scan walk) | ``"pg2:G"`` |
+    ``"pg2:G:W"`` (G-ray groups; W has no effect on the result)."""
     tok = tok.strip()
     kt = 0
     if tok.startswith("tiled@"):

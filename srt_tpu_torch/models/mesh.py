@@ -21,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from srt_tpu_torch.devices import resolve
 from srt_tpu_torch.models.pathtracer import Hit
 from srt_tpu_torch.ops import intersect, traversal, vec
 from srt_tpu_torch.scene import Materials
@@ -99,10 +100,12 @@ class MeshScene:
         return self.frames.device
 
 
-def upload(scene: FlatScene, device="cpu", atlas=None) -> MeshScene:
-    """Host FlatScene -> device MeshScene.  A cluster-aligned scene
-    (flatten_models pad_to=128) also gets the walk tables: the Woop table
-    [C, 16, 128] and the cluster AABBs."""
+def upload(scene: FlatScene, device=None, atlas=None) -> MeshScene:
+    """Host FlatScene -> MeshScene on ``device`` (None: the card,
+    ``devices.resolve``).  A cluster-aligned scene (flatten_models
+    pad_to=128) also gets the walk tables: the Woop table [C, 16, 128] and
+    the cluster AABBs."""
+    device = resolve(device)
     if atlas is not None:
         raise NotImplementedError("textured scenes are not ported yet: "
                                   "ROADMAP.md queue A")
@@ -239,8 +242,9 @@ def mesh_hit_fn(scene: MeshScene, method: str = "walk", kernel_tile: int = 0,
 
     ``kernel_tile`` is the tiled walk's rays per tile (0:
     ``default_kernel_tile``); ``binned`` selects the closest-hit walk
-    (False = tiled, ``"pg2:G:W"`` = per-group) and ``binned_anyhit`` the
-    shadow-ray walk (None = same).  ``plain`` runs the kernels' plain
+    (False = tiled, True = pair-binned, ``"pg"`` = mask-scan,
+    ``"pg2:G:W"`` = per-group; ``traversal.model_hit``) and
+    ``binned_anyhit`` the shadow-ray walk (None = same).  ``plain`` runs the kernels' plain
     versions on CUDA tensors (comparison runs only).
     """
     if method == "walk":

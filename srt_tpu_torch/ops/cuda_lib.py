@@ -10,7 +10,8 @@ Nothing here runs at import time.
 ``launch`` calls one C entry point on PyTorch's current stream, raises if
 the launch failed and adds one to ``launch_counts[name]``: the kernel
 wrappers (``ops/traversal.py``, ``ops/rng.py``) count only real kernel
-launches this way, never a plain-version call.
+launches this way, never a plain-version call.  ``launch_counts`` also
+holds ``BRANCH_COUNTERS``, which ``traversal.model_hit`` advances itself.
 
 Flags: ``-fmad=false`` keeps every multiply and add separately rounded, so
 a kernel's candidate t equals its plain PyTorch version's bit for bit; no
@@ -53,10 +54,19 @@ SIGNATURES = {
     "srt_pgwalk2": _WALK_B4 + [_P],
     "srt_pgwalk2_stream": _WALK_B4 + [_P],
     "srt_threefry": [_P, _P, _I, _U, _I, _U, _I, _P, _P],
+    "srt_cull_perray": [_P, _P, _I, _I, _P, _P],
+    "srt_cull_gmask": [_P, _P, _I, _I, _I, _P, _P],
+    "srt_pgwalk": [_P, _I, _P, _P, _I, _I, _P, _P, _P],
 }
+# Branch counters of ``traversal.model_hit``'s pair-binned walk: calls
+# that took the pair tiles, calls that fell back to the tiled walk.  They
+# count a decision, on any device, not a kernel launch.
+BRANCH_COUNTERS = ("binned_pairs", "binned_fallback")
 
-# Kernel launches on CUDA tensors, by wrapper name (``srt_<name>``).
+# Kernel launches on CUDA tensors, by wrapper name (``srt_<name>``), and
+# the branch counters.
 launch_counts = {name[4:]: 0 for name in SIGNATURES}
+launch_counts.update({name: 0 for name in BRANCH_COUNTERS})
 
 
 @dataclasses.dataclass(frozen=True)

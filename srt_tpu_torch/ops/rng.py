@@ -29,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from srt_tpu_torch.devices import resolve
 from srt_tpu_torch.ops import cuda_lib
 
 _M32 = 0xFFFFFFFF
@@ -117,10 +118,11 @@ def threefry(key, lo: int, rows: int, n: int, cols=None, raw: bool = False,
 # Keys and streams
 # ---------------------------------------------------------------------------
 
-def key(seed: int, device="cpu") -> torch.Tensor:
-    """The key data of ``jax.random.key(seed)``: ``(0, seed mod 2**32)``."""
+def key(seed: int, device=None) -> torch.Tensor:
+    """The key data of ``jax.random.key(seed)``: ``(0, seed mod 2**32)``,
+    on ``device`` (None: the card, ``devices.resolve``)."""
     return torch.tensor([0, int(seed) & _M32], dtype=torch.int64,
-                        device=device)
+                        device=resolve(device))
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:

@@ -1,9 +1,10 @@
-"""Cluster-culled Woop traversal: tables, the four walk kernels' wrappers
-and their plain PyTorch versions (counterpart of
+"""Cluster-culled Woop traversal: tables, the walk kernels' wrappers and
+their plain PyTorch versions (counterpart of
 ``srt_tpu/ops/traversal_pallas.py``).
 
 Triangles stay in BVH order, chunked into clusters of 128; 16 consecutive
-clusters form a supercluster ("super").  Two walks carry the render path:
+clusters form a supercluster ("super").  Two walks carry the default
+render path:
 
 * the **tiled walk** (primary rays): ``cull`` (B1) slab-tests each ray
   tile against every super and writes a near-to-far list of the supers the
@@ -14,6 +15,18 @@ clusters form a supercluster ("super").  Two walks carry the render path:
   (B3) ORs per-ray cluster occupancy over groups of G rays into 16-bit
   words per super, listed in ascending super index; ``pgwalk2`` (B4)
   evaluates exactly those clusters for the group's rays.
+
+Two more walks are selectable per bounce (``walks="binned"`` / ``"pg"``):
+
+* the **pair-binned walk** (``binned=True``): ``cull_perray`` (B5) writes
+  each 8-ray group's entry distance per super; ``binned_pairs`` groups the
+  (group, super) pairs super-major into tiles of one super each, which
+  ``intersect`` (B2) walks as one-entry lists; a segment-min combines the
+  pairs per ray.  When the pairs overflow their static capacity the call
+  takes the tiled walk instead (one host read of the pair count);
+* the **mask-scan walk** (``binned="pg"``): ``cull_gmask`` (B6) writes
+  each 8-ray group's 16-bit cluster word per super, uncompacted;
+  ``pgwalk`` (B7) scans every word and evaluates the set clusters.
 
 Models above ``STREAM_THRESHOLD_CLUSTERS`` clusters take the streamed
 variants of the walks (B2s ``intersect_stream``, B4s ``pgwalk2_stream``):
@@ -62,6 +75,7 @@ from srt_tpu_torch.ops.intersect import MT_HIT_EPS, MT_PARALLEL_EPS, mt_refine
 
 CLUSTER = 128          # triangles per cluster
 SUPER = 16             # clusters per supercluster (one 16-bit word)
+GROUP = 8              # rays per group of the pair-binned and mask-scan walks
 DEFAULT_TILE = 512     # rays per tiled-walk tile
 DEN_EPS_SCALE = MT_PARALLEL_EPS
 T_EPS = MT_HIT_EPS
@@ -214,27 +228,33 @@ def _lex_merge(bt, bi, t, i):
 # B1: tiled-walk cull
 # ---------------------------------------------------------------------------
 
+def _super_entries(rays8, sbounds, width: int):
+    """Per block of ``width`` consecutive rays, each super's minimum entry
+    max(t_near, 0) over the rays that enter it before their t_max, else
+    BIG: [Np/width, S] (the slab pass of B1 and B5)."""
+    s = sbounds.shape[1]
+    lo = [sbounds[a] for a in range(3)]
+    hi = [sbounds[3 + a] for a in range(3)]
+    parts = []
+    step = max(width, (_PLAIN_CHUNK // s) // width * width)
+    for r0 in range(0, rays8.shape[0], step):
+        c = _ray_cols(rays8[r0:r0 + step])
+        inv = [1.0 / c[3 + a] for a in range(3)]
+        t_near, t_far, sel = _slab(lo, hi, c[0:3], inv, fma_form=False)
+        hit = (t_near <= t_far) & (t_far >= 0.0) & (sel < c[6])
+        e = torch.where(hit, sel, torch.full_like(sel, BIG))
+        parts.append(e.view(-1, width, s).amin(1))
+    return torch.cat(parts)
+
+
 def cull_plain(rays8, sbounds, tile: int):
     """Plain version of B1.  rays8 [Np, 8]; sbounds [8, S] (rows min xyz,
     max xyz, pad).  Returns (clist [Np/tile, S] int32, elist [Np/tile, S]
     f32, counts [Np/tile, 1] int32): per tile, the supers any ray enters
     before its t_max, ordered by (tile-min entry distance, index); unused
     slots hold 0."""
-    n_tiles = rays8.shape[0] // tile
     s = sbounds.shape[1]
-    lo = [sbounds[a] for a in range(3)]
-    hi = [sbounds[3 + a] for a in range(3)]
-    parts = []
-    step = max(1, _PLAIN_CHUNK // (tile * s))
-    for t0 in range(0, n_tiles, step):
-        rays = rays8[t0 * tile:(t0 + step) * tile]
-        c = _ray_cols(rays)
-        inv = [1.0 / c[3 + a] for a in range(3)]
-        t_near, t_far, sel = _slab(lo, hi, c[0:3], inv, fma_form=False)
-        hit = (t_near <= t_far) & (t_far >= 0.0) & (sel < c[6])
-        e = torch.where(hit, sel, torch.full_like(sel, BIG))
-        parts.append(e.view(-1, tile, s).amin(1))
-    e = torch.cat(parts)
+    e = _super_entries(rays8, sbounds, tile)
     counts = (e < BIG).sum(1, dtype=torch.int32)[:, None]
     e_sorted, order = torch.sort(e, dim=1, stable=True)   # ties by index
     used = torch.arange(s, device=e.device)[None, :] < counts
@@ -395,28 +415,35 @@ def intersect_count(counts, clist, elist, rays8, cb, woop, tile: int,
 # B3: per-group cull
 # ---------------------------------------------------------------------------
 
-def cull_pg2_plain(rays8, cb8, s_count: int, group: int):
-    """Plain version of B3.  cb8 [8, >= 16*S] per-cluster boxes (rows min
-    xyz, max xyz, pad; NaN boxes for padding clusters).  Per group of
-    ``group`` consecutive rays: clist [Np/G, S] int32 (active supers,
-    ascending), bits [Np/G, S] int32 (their 16 cluster-occupancy bits),
-    counts [Np/G, 1] int32; unused slots hold 0."""
-    npad = rays8.shape[0]
+def _group_words(rays8, cb8, s_count: int, group: int, fma_form: bool):
+    """Per group of ``group`` consecutive rays, the cluster occupancy
+    (entry max(t_near, 0) below the ray's t_max) OR-ed over the group, as
+    one 16-bit word per super: [Np/G, S] int32 (the slab pass of B3 and
+    B6; ``fma_form`` as in ``_slab``)."""
     n_cl = s_count * SUPER
     lo = [cb8[a, :n_cl] for a in range(3)]
     hi = [cb8[3 + a, :n_cl] for a in range(3)]
     shifts = torch.arange(SUPER, dtype=torch.int32, device=rays8.device)
     parts = []
     step = max(group, (_PLAIN_CHUNK // n_cl) // group * group)
-    for r0 in range(0, npad, step):
+    for r0 in range(0, rays8.shape[0], step):
         c = _ray_cols(rays8[r0:r0 + step])
         inv = [1.0 / c[3 + a] for a in range(3)]
-        oi = [c[a] * inv[a] for a in range(3)]
-        t_near, t_far, sel = _slab(lo, hi, oi, inv, fma_form=True)
+        o = [c[a] * inv[a] for a in range(3)] if fma_form else c[0:3]
+        t_near, t_far, sel = _slab(lo, hi, o, inv, fma_form)
         hit = (t_near <= t_far) & (t_far >= 0.0) & (sel < c[6])
         occ = hit.view(-1, group, s_count, SUPER).any(1)
         parts.append((occ.to(torch.int32) << shifts).sum(-1, dtype=torch.int32))
-    bits = torch.cat(parts)                                  # [ng, S]
+    return torch.cat(parts)
+
+
+def cull_pg2_plain(rays8, cb8, s_count: int, group: int):
+    """Plain version of B3.  cb8 [8, >= 16*S] per-cluster boxes (rows min
+    xyz, max xyz, pad; NaN boxes for padding clusters).  Per group of
+    ``group`` consecutive rays: clist [Np/G, S] int32 (active supers,
+    ascending), bits [Np/G, S] int32 (their 16 cluster-occupancy bits),
+    counts [Np/G, 1] int32; unused slots hold 0."""
+    bits = _group_words(rays8, cb8, s_count, group, fma_form=True)
     active = bits != 0
     counts = active.sum(1, dtype=torch.int32)[:, None]
     order = torch.sort((~active).to(torch.int8), dim=1, stable=True).indices
@@ -457,15 +484,25 @@ def pgwalk2_plain(clist, bits, counts, rays8, woop, group: int,
     lists, with t below min(t_max, BIG).  Returns (t [Np, 1] — the
     winner's t, else min(t_max, BIG); i [Np, 1] int32 — local id or
     -1)."""
-    npad = rays8.shape[0]
-    ng = npad // group
     dev = rays8.device
-    t_cap = torch.clamp_max(rays8[:, 6], BIG)
     listed = torch.arange(clist.shape[1], device=dev)[None, :] < counts
     k16 = torch.arange(SUPER, dtype=torch.int32, device=dev)
     on = (((bits[..., None] >> k16) & 1) > 0) & listed[..., None]
     g_idx, j_idx, k_idx = on.nonzero(as_tuple=True)
     cl = clist[g_idx, j_idx].long() * SUPER + k_idx
+    return _group_walk_plain(g_idx, cl, rays8, woop, group, any_hit,
+                             torch.clamp_max(rays8[:, 6], BIG), nested=True)
+
+
+def _group_walk_plain(g_idx, cl, rays8, woop, group: int, any_hit: bool,
+                      t_cap, nested: bool):
+    """The per-group walks' result: for each ray, the lexicographic min of
+    (t, index) over the valid candidates of the (group ``g_idx``, cluster
+    ``cl``) pairs with t below ``t_cap`` [Np].  Returns (t [Np, 1] — the
+    winner's t, else t_cap; i [Np, 1] int32 — local id or -1)."""
+    npad = rays8.shape[0]
+    ng = npad // group
+    dev = rays8.device
     rays_g = rays8.view(ng, group, 8)
     lane = torch.arange(CLUSTER, dtype=torch.int32, device=dev)
     pt, pi, pr = [], [], []
@@ -475,7 +512,7 @@ def pgwalk2_plain(clist, bits, counts, rays8, woop, group: int,
         c = cl[p0:p0 + step]
         cols = _ray_cols(rays_g[g])                          # [p, G, 1]
         t, valid = _woop_candidates(cols[0:3], cols[3:6], woop[c, :13],
-                                    nested=True)
+                                    nested)
         valid = valid & (t < t_cap.view(ng, group)[g][..., None])
         if any_hit:
             valid = valid & (t > cols[7])
@@ -531,6 +568,129 @@ def _pgwalk2_launch(name, clist, bits, counts, rays8, woop, group, any_hit):
     _launch(name, _i32(clist), _i32(bits), _i32(counts), clist.shape[1],
             _f32(rays8), _f32(woop), npad // group, group, int(any_hit),
             out_t, out_i)
+    return out_t, out_i
+
+
+# ---------------------------------------------------------------------------
+# B5: per-group super entries, and the pair binning (plain torch, as the
+# JAX package computes it in XLA outside any kernel)
+# ---------------------------------------------------------------------------
+
+def cull_perray_plain(rays8, sbounds):
+    """Plain version of B5: per group of GROUP consecutive rays, each
+    super's minimum entry max(t_near, 0) over the rays that enter it
+    before their t_max, else BIG: e [Np/8, S] f32 (B1's slab form)."""
+    return _super_entries(rays8, sbounds, GROUP)
+
+
+def cull_perray(rays8, sbounds, plain: bool = False):
+    """B5 (replaces ``_cull_perray_kernel``, traversal_pallas.py:284)."""
+    _check_group(GROUP, rays8.shape[0])
+    if plain or _on_cpu(rays8):
+        return cull_perray_plain(rays8, sbounds)
+    npad, s = rays8.shape[0], sbounds.shape[1]
+    e = torch.empty((npad // GROUP, s), dtype=torch.float32,
+                    device=rays8.device)
+    _launch("cull_perray", _f32(rays8), _f32(sbounds), npad, s, e)
+    return e
+
+
+def pair_capacity(n_groups: int, s: int, gpt: int, factor: int) -> int:
+    """Static (group, super) pair capacity: ``factor`` slots per group,
+    at most every pair plus a tile of padding per super, rounded up to
+    whole 8-tile windows of ``gpt`` groups (``_pair_capacity``)."""
+    cap = min(factor * n_groups, n_groups * s + s * gpt)
+    return -(-cap // (gpt * 8)) * (gpt * 8)
+
+
+def binned_pairs(e_group, gpt: int, p_cap: int):
+    """Group the per-group super occupancy ``e_group`` [G, S] into
+    super-major pair tiles of ``gpt`` groups (``_binned_pairs``).
+
+    Returns (pair_grp [p_cap] int32 — group id per pair slot, G for
+    padding; tile_super [p_cap/gpt, 1] int32 — each tile's one super;
+    tile_counts [p_cap/gpt, 1] int32 — 1 for tiles below the total;
+    total — 0-d tensor, the slots the pairs need, > p_cap on overflow).
+    Pairs past ``p_cap`` are dropped, as ``.at[].set(mode="drop")``
+    drops them."""
+    n_groups, s = e_group.shape
+    dev = e_group.device
+    occ = (e_group < BIG).T.to(torch.int64)                 # [S, G]
+    cnt = occ.sum(1)
+    cnt_pad = (cnt + gpt - 1) // gpt * gpt
+    ends = torch.cumsum(cnt_pad, 0)
+    offs = ends - cnt_pad
+    pos = offs[:, None] + torch.cumsum(occ, 1) - 1
+    keep = (occ > 0) & (pos < p_cap)
+    grp_ids = torch.arange(n_groups, dtype=torch.int32,
+                           device=dev).expand(s, n_groups)
+    pair_grp = torch.full((p_cap,), n_groups, dtype=torch.int32, device=dev)
+    pair_grp[pos[keep]] = grp_ids[keep]
+    tile_start = torch.arange(p_cap // gpt, dtype=torch.int64,
+                              device=dev) * gpt
+    tile_super = torch.clamp_max(
+        torch.searchsorted(ends, tile_start, right=True), s - 1)
+    tile_counts = tile_start < ends[-1]
+    return (pair_grp, tile_super.to(torch.int32)[:, None],
+            tile_counts.to(torch.int32)[:, None], ends[-1])
+
+
+# ---------------------------------------------------------------------------
+# B6: per-group cluster masks; B7: the mask-scan walk
+# ---------------------------------------------------------------------------
+
+def cull_gmask_plain(rays8, cb8, s_count: int):
+    """Plain version of B6: per group of GROUP consecutive rays, the
+    cluster occupancy OR-ed over the group, one 16-bit word per super
+    (bit k of word s is cluster 16*s + k), uncompacted: mask [Np/8, S]
+    int32.  B1's ``(box - o) * inv`` slab form, not B3's."""
+    return _group_words(rays8, cb8, s_count, GROUP, fma_form=False)
+
+
+def cull_gmask(rays8, cb8, s_count: int, plain: bool = False):
+    """B6 (replaces ``_cull_gmask_kernel``, traversal_pallas.py:436)."""
+    _check_group(GROUP, rays8.shape[0])
+    if plain or _on_cpu(rays8):
+        return cull_gmask_plain(rays8, cb8, s_count)
+    if cb8.shape[1] < s_count * SUPER:
+        raise ValueError(f"cb8 has {cb8.shape[1]} clusters, need "
+                         f"{s_count * SUPER}")
+    npad = rays8.shape[0]
+    mask = torch.empty((npad // GROUP, s_count), dtype=torch.int32,
+                       device=rays8.device)
+    cb8 = _f32(cb8)
+    _launch("cull_gmask", _f32(rays8), cb8, cb8.shape[1], npad, s_count,
+            mask)
+    return mask
+
+
+def pgwalk_plain(mask, rays8, woop, any_hit: bool = False):
+    """Plain version of B7.  Each ray's winner is the lexicographic min of
+    (t, index) over the valid candidates of every cluster whose bit is
+    set in its group's words, with t below t_max (no BIG cap), the affine
+    rows folded left to right (B2's order).  Returns (t [Np, 1] — the
+    winner's t, else t_max; i [Np, 1] int32 — local id or -1)."""
+    k16 = torch.arange(SUPER, dtype=torch.int32, device=rays8.device)
+    on = ((mask[..., None] >> k16) & 1) > 0
+    g_idx, s_idx, k_idx = on.nonzero(as_tuple=True)
+    return _group_walk_plain(g_idx, s_idx * SUPER + k_idx, rays8, woop,
+                             GROUP, any_hit, rays8[:, 6], nested=False)
+
+
+def pgwalk(mask, rays8, woop, any_hit: bool = False, plain: bool = False):
+    """B7 (replaces ``_pgwalk_kernel``, traversal_pallas.py:937).  mask
+    [Np/8, S] int32 from ``cull_gmask``; woop [C, 16, 128]."""
+    _check_group(GROUP, rays8.shape[0])
+    npad = rays8.shape[0]
+    if mask.shape[0] != npad // GROUP:
+        raise ValueError(f"mask has {mask.shape[0]} rows for "
+                         f"{npad // GROUP} groups")
+    if plain or _on_cpu(rays8):
+        return pgwalk_plain(mask, rays8, woop, any_hit)
+    out_t = torch.empty((npad, 1), dtype=torch.float32, device=rays8.device)
+    out_i = torch.empty((npad, 1), dtype=torch.int32, device=rays8.device)
+    _launch("pgwalk", _i32(mask), mask.shape[1], _f32(rays8), _f32(woop),
+            npad // GROUP, int(any_hit), out_t, out_i)
     return out_t, out_i
 
 
@@ -694,39 +854,96 @@ def pack_rays(scene, b: int, origins, dirs, t_best, tile: int,
     return rays8, o_m, d_m
 
 
+def pair_rays(rays8, pair_grp):
+    """The pair tiles' ray operand [P*8, 8]: each pair slot's group of
+    GROUP rays, and a dead group (t_max 0) for the padding slots."""
+    n_groups = rays8.shape[0] // GROUP
+    dead = torch.tensor([0.0, 0.0, 0.0, 1.0, 1.0, 1.0, 0.0, 0.0] * GROUP,
+                        device=rays8.device)
+    rays_grp = torch.cat([rays8.reshape(n_groups, GROUP * 8), dead[None]])
+    return rays_grp[pair_grp.long()].view(-1, 8)
+
+
+def _pair_walk(rays8, sbounds, cb, woop, tile: int, any_hit: bool,
+               pair_factor: int, plain: bool):
+    """The pair-binned walk (the binned branch of ``pallas_model_hit``,
+    traversal_pallas.py:1637-1687): B5, the pair tiles walked by B2 as
+    one-entry lists, and a segment-min combine per ray: min t first, then
+    the smallest index among the pairs at that t.  If the pairs need more
+    than the static capacity, the tiled walk (B1 + B2) on the same rays
+    instead.  The choice reads the pair count on the host once per call
+    (the eager counterpart of JAX's ``lax.cond``); only the chosen branch
+    runs.  Returns (t [Np, 1] — t_max on a miss, i [Np, 1] int32)."""
+    npad = rays8.shape[0]
+    dev = rays8.device
+    n_groups, gpt = npad // GROUP, tile // GROUP
+    e_group = cull_perray(rays8, sbounds, plain)
+    p_cap = pair_capacity(n_groups, sbounds.shape[1], gpt, pair_factor)
+    pair_grp, tile_super, tile_counts, total = binned_pairs(e_group, gpt,
+                                                            p_cap)
+    if int(total) > p_cap:
+        launch_counts["binned_fallback"] += 1
+        clist, elist, counts = cull(rays8, sbounds, tile, plain)
+        return intersect(counts, clist, elist, rays8, cb, woop, tile, any_hit,
+                         plain)
+    launch_counts["binned_pairs"] += 1
+    elist0 = torch.zeros((p_cap // gpt, 1), dtype=torch.float32, device=dev)
+    pt, pi = intersect(tile_counts, tile_super, elist0,
+                       pair_rays(rays8, pair_grp), cb, woop, tile, any_hit,
+                       plain)
+    pt, pi = pt[:, 0], pi[:, 0]
+    pt = torch.where(pi >= 0, pt, torch.full_like(pt, float("inf")))
+    # Padding slots land in the rows past npad.
+    pair_ray = (pair_grp.long()[:, None] * GROUP
+                + torch.arange(GROUP, device=dev)).reshape(-1)
+    seg_t = torch.full((npad + GROUP,), float("inf"), device=dev)
+    seg_t = seg_t.scatter_reduce(0, pair_ray, pt, "amin")
+    win = (pi >= 0) & (pt <= seg_t[pair_ray])
+    miss = torch.full_like(pi, MISS_IDX)
+    seg_i = torch.full((npad + GROUP,), MISS_IDX, dtype=torch.int32,
+                       device=dev)
+    seg_i = seg_i.scatter_reduce(0, pair_ray, torch.where(win, pi, miss),
+                                 "amin")
+    hit = seg_i[:npad] < MISS_IDX
+    out_t = torch.where(hit, seg_t[:npad], rays8[:, 6])
+    out_i = torch.where(hit, seg_i[:npad], torch.full_like(seg_i[:npad], -1))
+    return out_t[:, None], out_i[:, None]
+
+
 def model_hit(scene, b: int, origins, dirs, t_best, tile: int = DEFAULT_TILE,
               any_hit: bool = False, refine: bool = True, stream=None,
-              binned=False, count_evals: bool = False, t_min: float = 0.0,
-              plain: bool = False):
+              binned=False, pair_factor: int = 8, count_evals: bool = False,
+              t_min: float = 0.0, plain: bool = False):
     """Closest hit of [3, N] rays against model ``b`` (counterpart of
     ``pallas_model_hit``).  Returns (t [N], tri_idx [N] int32, u, v), and
     with ``count_evals`` also the tiled walk's per-tile counters ctr
     [Np/tile, 2] int32 (``intersect_count``).
 
-    ``binned``: False for the tiled walk, ``"pg2:G[:W]"`` for the
-    per-group walk at G-ray groups (W is a TPU unroll width with no
-    effect on the result).  ``stream``: None takes the streamed walks for
-    models of more than ``STREAM_THRESHOLD_CLUSTERS`` clusters, as the JAX
-    package does; True/False force them on or off.  ``any_hit`` is the
-    shadow-ray mode: candidate t > ``t_min`` is required and any hit
-    inside t_best may end the walk.  ``refine=False`` (or any-hit) returns
-    the kernels' candidate t with zero u/v.  ``plain=True`` runs the plain
-    versions on CUDA tensors (for kernel-vs-plain comparisons only).
+    ``binned``: False for the tiled walk; True (or ``"binned"``) for the
+    pair-binned walk, with ``pair_factor`` pair slots per 8-ray group
+    before it falls back to the tiled walk; ``"pg"`` for the mask-scan
+    walk; ``"pg2:G[:W]"`` for the per-group walk at G-ray groups (W is a
+    TPU unroll width with no effect on the result).  As in the JAX
+    package, neither ``True`` nor ``"pg"`` streams or runs on a one-super
+    model: those calls take the tiled walk.  ``stream``: None takes the
+    streamed walks for models of more than ``STREAM_THRESHOLD_CLUSTERS``
+    clusters, as the JAX package does; True/False force them on or off.
+    ``any_hit`` is the shadow-ray mode: candidate t > ``t_min`` is
+    required and any hit inside t_best may end the walk.
+    ``refine=False`` (or any-hit) returns the kernels' candidate t with
+    zero u/v.  ``plain=True`` runs the plain versions on CUDA tensors (for
+    kernel-vs-plain comparisons only).
     """
     if scene.woop is None:
         raise ValueError("scene was uploaded without walk tables; use "
                          "flatten_models(..., pad_to=128) + upload()")
-    if binned is True or binned == "binned":
-        raise NotImplementedError("the binned walk (B5) is not ported yet: "
-                                  "ROADMAP.md queue B")
-    if binned == "pg":
-        raise NotImplementedError("the pg v1 walk (B6/B7) is not ported "
-                                  "yet: ROADMAP.md queue B")
     if count_evals and binned:
         raise ValueError("count_evals instrumentation covers the tiled walk "
                          "only")
+    pairs = binned is True or binned == "binned"
+    mask_scan = binned == "pg"
     group = 0
-    if isinstance(binned, str):
+    if isinstance(binned, str) and not (pairs or mask_scan):
         if not binned.startswith("pg2:"):
             raise ValueError(f"unknown walk {binned!r}")
         group = int(binned.split(":")[1])
@@ -737,7 +954,12 @@ def model_hit(scene, b: int, origins, dirs, t_best, tile: int = DEFAULT_TILE,
         stream = n_clusters > STREAM_THRESHOLD_CLUSTERS
     if stream:
         woop = stream_table(scene, b)
-    rays8, o_m, d_m = pack_rays(scene, b, origins, dirs, t_best, tile,
+    pairs = pairs and s_count > 1 and not stream
+    mask_scan = mask_scan and s_count > 1 and not stream
+    # The pair capacity, and so the pair walk's branch, follows the padded
+    # ray count: pad as the JAX package does, to whole 8-tile windows.
+    rays8, o_m, d_m = pack_rays(scene, b, origins, dirs, t_best,
+                                tile * 8 if pairs else tile,
                                 t_min if any_hit else 0.0)
     n = origins.shape[1]
     npad = rays8.shape[0]
@@ -748,6 +970,12 @@ def model_hit(scene, b: int, origins, dirs, t_best, tile: int = DEFAULT_TILE,
         walk = pgwalk2_stream if stream else pgwalk2
         out_t, out_i = walk(clist, bits, counts, rays8, woop, group, any_hit,
                             plain)
+    elif mask_scan:
+        mask = cull_gmask(rays8, cb8, s_count, plain)
+        out_t, out_i = pgwalk(mask, rays8, woop, any_hit, plain)
+    elif pairs:
+        out_t, out_i = _pair_walk(rays8, sbounds, cb, woop, tile, any_hit,
+                                  pair_factor, plain)
     else:
         if s_count == 1:
             # One super: the list is trivial; the cluster gate culls.

@@ -76,7 +76,8 @@ def test_upload_tables_match_jax(name):
     cluster AABBs included."""
     d, static = jax_scene_arrays(
         jax_mesh.upload(jax_flatten([MESHES[name](jax_procgen)], pad_to=128)))
-    got = mesh.upload(flatten_models([MESHES[name](procgen)], pad_to=128))
+    got = mesh.upload(flatten_models([MESHES[name](procgen)], pad_to=128),
+                      device="cpu")
     assert got.woop is not None and got.woop.shape[1:] == (16, 128)
     assert_scene_equal(got, d, static)
 
@@ -110,10 +111,34 @@ def test_lights_converter():
     got = lights_from_arrays({k: np.asarray(getattr(ref, k))
                               for k in ("position", "color", "intensity")},
                              "cpu")
-    own = model_scene_lights()
+    own = model_scene_lights(device="cpu")
     for k in ("position", "color", "intensity"):
         assert torch.equal(getattr(got, k), getattr(own, k))
     assert got.count == ref.count == 6
+
+
+def test_entry_points_default_to_the_card():
+    """Every public function of the port that takes a ``device`` defaults
+    to None, the card; without a CUDA device such a call raises instead of
+    falling back to the CPU."""
+    import inspect
+
+    from srt_tpu_torch import devices
+    from srt_tpu_torch.ops import rng
+    calls = {
+        mesh.upload: lambda: mesh.upload(
+            flatten_models([procgen.uv_sphere(4, 6)], pad_to=128)),
+        model_scene_lights: model_scene_lights,
+        derive_viewport: lambda: derive_viewport(CameraConfig()),
+        rng.key: lambda: rng.key(0),
+    }
+    for fn, call in calls.items():
+        assert inspect.signature(fn).parameters["device"].default is None
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()
+    assert devices.resolve("cpu") == torch.device("cpu")
+    assert rng.key(0, "cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("hw", [(8, 8), (24, 40), (33, 17)])
@@ -130,7 +155,8 @@ def test_generate_rays_match_jax(spp):
         size=(2, 24 * 16 * spp)).astype(np.float32)
     o_ref, d_ref = jax_generate_rays(jax_viewport(JaxCamera(**kw)), 24, 16,
                                      jnp.asarray(jitter))
-    o, d = generate_rays(derive_viewport(CameraConfig(**kw)), 24, 16,
+    o, d = generate_rays(derive_viewport(CameraConfig(**kw), device="cpu"),
+                         24, 16,
                          torch.as_tensor(jitter))
     np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), rtol=1e-6)
     np.testing.assert_allclose(d.numpy(), np.asarray(d_ref), rtol=1e-6,

@@ -143,7 +143,7 @@ def port_scene():
     from srt_tpu_torch.utils.flatten import flatten_models
     from srt_tpu_torch.utils.procgen import uv_sphere
     return mesh.upload(flatten_models([uv_sphere(24, 36, radius=2.0)],
-                                      pad_to=128))
+                                      pad_to=128), device="cpu")
 
 
 @pytest.mark.parametrize("spp", [1, 2])
@@ -156,9 +156,9 @@ def test_render_plan_walk_matches_dense(port_scene, spp):
     traversal.reset_launch_counts()
     imgs = {}
     for method in ("walk", "dense"):
-        plan = fastpath.make_render_plan(port_scene, model_scene_lights(),
+        plan = fastpath.make_render_plan(port_scene, model_scene_lights("cpu"),
                                          cam, cfg, method=method)
-        img, stats, overflow = plan.render(rng.key(2))
+        img, stats, overflow = plan.render(rng.key(2, "cpu"))
         assert int(overflow) == 0 and stats.shape == (3, 2)
         assert bool(torch.isfinite(img).all()) and int(stats.sum()) > 0
         imgs[method] = img
@@ -175,12 +175,12 @@ def test_walk_parsing_and_validation(port_scene):
         fastpath.parse_walk("warp")
     assert len(fastpath.parse_walks("tiled,pg2:16:4", 4)) == 4
     with pytest.raises(ValueError, match="does not divide"):
-        fastpath.make_render_plan(port_scene, model_scene_lights(),
+        fastpath.make_render_plan(port_scene, model_scene_lights("cpu"),
                                   CameraConfig(**CAM),
                                   RenderConfig(max_depth=2, rr_bounces=0),
                                   walks="tiled@256,pg2:96:4")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fastpath.make_render_plan(port_scene, model_scene_lights(),
+        fastpath.make_render_plan(port_scene, model_scene_lights("cpu"),
                                   CameraConfig(**CAM),
                                   RenderConfig(max_depth=2, nee=True))
     w, ws = fastpath.default_walks(port_scene, 4)

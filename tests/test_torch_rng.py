@@ -41,7 +41,7 @@ def bits(x):
 
 @pytest.mark.parametrize("seed", SEEDS)
 def test_key_and_fold_in_match_jax(seed):
-    k = rng.key(seed)
+    k = rng.key(seed, "cpu")
     jk = jax.random.key(seed)
     np.testing.assert_array_equal(k.numpy(), jax.random.key_data(jk))
     for data in (0, 1, 7, 123456789, 2 ** 32 - 1):
@@ -57,7 +57,7 @@ def test_key_and_fold_in_match_jax(seed):
 def test_key_stream_matches_jax(seed, n):
     """Successive ``take`` / ``take_block`` calls consume one counter each,
     as the JAX stream does; blocks are bit-equal, ``rows_at`` too."""
-    ks = rng.KeyStream(rng.key(seed), n)
+    ks = rng.KeyStream(rng.key(seed, "cpu"), n)
     jks = jax_rng.KeyStream(jax.random.key(seed), n)
     for k in (2, 18):
         np.testing.assert_array_equal(bits(ks.take(k)), bits(jks.take(k)))
@@ -77,7 +77,7 @@ def test_key_stream_matches_jax(seed, n):
 
 def test_threefry_checks_and_launches_nothing_on_cpu():
     traversal.reset_launch_counts()
-    k = rng.key(3)
+    k = rng.key(3, "cpu")
     rng.KeyStream(k, 64).take_block(4).rows_at(1, 3, torch.arange(5))
     assert traversal.launch_counts["threefry"] == 0
     with pytest.raises(TypeError, match="int64 tensor of 2"):
@@ -126,7 +126,7 @@ def test_render_plan_matches_jax_for_one_key(streamed_scene, monkeypatch):
         monkeypatch.setattr(traversal, name, spy)
     p_plan = fastpath.make_render_plan(ps, pl, CameraConfig(**cam),
                                        RenderConfig(**kw))
-    p_img, p_st, p_ov = p_plan.render(rng.key(3))
+    p_img, p_st, p_ov = p_plan.render(rng.key(3, "cpu"))
     assert set(calls) == {"intersect_stream", "pgwalk2_stream"}
     assert p_plan.schedule == j_plan.schedule
     assert int(j_ov) == int(p_ov) == 0

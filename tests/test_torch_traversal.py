@@ -150,6 +150,19 @@ def assert_walk_equal(ref_t, ref_i, t, i, op, nested):
     np.testing.assert_array_equal(t.numpy()[~hit], ref_t[~hit])
 
 
+def assert_hits_match(ref, got, rays8, woop, nested):
+    """``model_hit`` outputs against ``pallas_model_hit``'s: winners as in
+    ``assert_winners_equal``; refined t, u, v of equal winners within
+    rtol 1e-6; misses at +inf."""
+    assert_winners_equal(ref[1], got[1], rays8, woop, nested)
+    hit = np.asarray(ref[1]) >= 0
+    same = hit & (np.asarray(ref[1]) == got[1].numpy())
+    for a, b in zip(got[0::2], ref[0::2]):
+        np.testing.assert_allclose(a.numpy()[same], np.asarray(b)[same],
+                                   rtol=1e-6, atol=1e-7)
+    assert np.isinf(got[0].numpy()[~hit]).all()
+
+
 @pytest.mark.parametrize("mixed", [False, True], ids=["live", "mixed"])
 def test_cull_matches_pallas(scenes, mixed):
     op = operands(scenes[1], 7, mixed, False)
@@ -212,13 +225,7 @@ def test_model_hit_matches_pallas(scenes, walk):
         ref = jax_tp.pallas_model_hit(js, 0, o, d, t, tile=TILE, binned=walk)
         got = tr.model_hit(ps, 0, po, pd, pt, tile=TILE, binned=walk)
         rays8, _, _ = tr.pack_rays(ps, 0, po, pd, pt, TILE)
-        assert_winners_equal(ref[1], got[1], rays8, ps.woop, bool(walk))
-        hit = np.asarray(ref[1]) >= 0
-        same = hit & (np.asarray(ref[1]) == got[1].numpy())
-        for a, b in zip(got[0::2], ref[0::2]):
-            np.testing.assert_allclose(a.numpy()[same], np.asarray(b)[same],
-                                       rtol=1e-6, atol=1e-7)
-        assert np.isinf(got[0].numpy()[~hit]).all()
+        assert_hits_match(ref, got, rays8, ps.woop, bool(walk))
 
 
 @pytest.fixture
@@ -265,20 +272,18 @@ def test_model_hit_matches_shipped_pallas(scenes, shipped_pallas, walk):
             assert np.isinf(got[0].numpy()[~hit]).all()
 
 
-def test_unported_modes_raise(scenes):
-    _, ps = scenes
-    _, (o, d, t) = ray_batch(3, False)
-    for kw in (dict(binned=True), dict(binned="pg")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tr.model_hit(ps, 0, o, d, t, tile=TILE, **kw)
-
-
 def test_cpu_tensors_launch_no_kernel(scenes):
+    """CPU tensors run every walk's plain version: no kernel launch is
+    counted; only the pair-binned walk's branch counters move."""
+    from srt_tpu_torch.ops.cuda_lib import BRANCH_COUNTERS
     _, ps = scenes
     _, (o, d, t) = ray_batch(5, True)
     tr.reset_launch_counts()
-    for walk in (False, "pg2:16:4"):
+    for walk in (False, "pg2:16:4", True, "pg"):
         for any_hit in (False, True):
             tr.model_hit(ps, 0, o, d, t, tile=TILE, binned=walk,
                          any_hit=any_hit)
-    assert all(v == 0 for v in tr.launch_counts.values())
+    counts = dict(tr.launch_counts)
+    assert counts.pop("binned_pairs") + counts.pop("binned_fallback") == 2
+    assert set(BRANCH_COUNTERS).isdisjoint(counts)
+    assert all(v == 0 for v in counts.values())
