@@ -54,7 +54,7 @@ just before it and read just after; every kernel must be launched by its
 path.  Every kernel case also prints its bound: the larger of the bytes
 its inputs and outputs must move over 3.35 TB/s and the operations these
 inputs need over 67 TFLOP/s (FP32 outside the tensor cores; the H100 SXM
-data sheet's peaks, as the on-chip-measurement guide lists them).
+data sheet's peaks).
 
 ``--profile PATH`` also writes ``torch.profiler`` tables of one more
 frame of each render (headline, config8, binned, pg) to PATH (the source
@@ -117,7 +117,7 @@ FLOAT_OUTPUTS = {"cull": (1,), "intersect": (0,), "cull_pg2": (),
                  "pgwalk2_stream": (0,), "intersect_count": (0,),
                  "threefry": (0,), "cull_perray": (0,), "cull_gmask": (),
                  "pgwalk": (0,)}
-# Bounds: NVIDIA's H100 SXM peaks (on-chip-measurement guide) and the
+# Bounds: NVIDIA's H100 SXM data-sheet peaks and the
 # operations per unit of work, read from the CUDA sources: a slab test
 # (traversal_common.cuh ``slab``: 6 subtractions, 6 multiplies, 11
 # minima/maxima, 3 compares) per (ray, box); a Woop evaluation

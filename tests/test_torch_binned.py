@@ -216,7 +216,7 @@ def test_binned_dispatch(scenes, monkeypatch, spy, walk):
 @pytest.fixture(scope="module")
 def plan_scene(exact_reciprocal):
     """uv_sphere(50, 170): 131 clusters, 9 superclusters, so the JAX plan
-    takes the compact driver; resident walks."""
+    takes the compact wavefront path; resident walks."""
     js = jax_mesh.upload(jax_flatten([jax_procgen.uv_sphere(50, 170)],
                                      pad_to=128))
     jl = jax_lights()
