@@ -11,9 +11,14 @@ Phases, one line each; the last line is printed only when all pass:
 2. Build: nvcc builds ``srt_tpu_torch/csrc`` into ``build/srt_tpu_torch``.
 3. Kernel vs plain PyTorch version, on the card, at the headline scene's
    tables (101,760 triangles, 50 superclusters) and 65,536 rays per case:
-   outputs must be equal; median times of both.  Also the counted tiled
-   walk (B2c) there, and the threefry lattice kernel at 18 slots x 1M
-   columns (``full`` and ``rows_at``, bit for bit).
+   outputs must be equal; median times of both.  B4 also on few groups
+   (256 rays at G = 32, so each group's list is split over P > 1
+   blocks), at G = 8 and G = 1024 (4,096 rays), and on the sphere's
+   tables repeated (every hit an exact tie, which the first copy must
+   win; twice, and often enough that lists outgrow the entries the kernel
+   stages in shared memory).  Also the counted tiled walk (B2c) there, and the threefry
+   lattice kernel at 18 slots x 1M columns (``full`` and ``rows_at``, bit
+   for bit).
 4. The headline render at full size: ``make_render_plan`` on
    ``uv_sphere(160, 320, radius=2.0)``, 1024x1024, spp 1, max_depth 4,
    probe + schedule discovery, then one untimed frame in which every
@@ -27,7 +32,8 @@ Phases, one line each; the last line is printed only when all pass:
 6. The config8 scene (``bench_suite.py`` config8): ``uv_sphere(360, 700,
    radius=2.0)``, 502,600 triangles in 3,927 clusters, above the stream
    threshold, so the plan walks with the streamed kernels.  (a) B2s and
-   B4s against their plain versions at 65,536 rays on its tables;
+   B4s against their plain versions at 65,536 rays on its tables, and B4s
+   on 256 rays at G = 32 (P > 1);
    (b) resident vs streamed kernels on both scenes' tables, same rays,
    equal outputs, ms of both; (c) one untimed 512x512, max_depth 2 frame
    whose every launch is replayed through its plain version and which
@@ -51,7 +57,9 @@ Phases, one line each; the last line is printed only when all pass:
 Each path (the headline frames, the config8 frames, the counter run, the
 binned frames, the pg frames) is driven with the launch counts set to 0
 just before it and read just after; every kernel must be launched by its
-path.  Every kernel case also prints its bound: the larger of the bytes
+path.  Each replayed B4/B4s launch also prints its groups, the clusters
+its lists name and the split P its wrapper chose.  Every kernel case also
+prints its bound: the larger of the bytes
 its inputs and outputs must move over 3.35 TB/s and the operations these
 inputs need over 67 TFLOP/s (FP32 outside the tensor cores; the H100 SXM
 data sheet's peaks).
@@ -110,6 +118,9 @@ HEADLINE_CAMERA = dict(origin=(0.0, 1.0, 5.0), look_at=(0.0, 0.0, 0.0))
 HEADLINE_SPHERE, CONFIG8_SPHERE = (160, 320), (360, 700)
 HEADLINE_SIZE, CONFIG8_SIZE = 1024, 512
 CASE_RAYS, THREEFRY_COLS = 65536, 1 << 20
+# Rays of the few-group B4/B4s cases (8 groups at G = 32), and the list
+# entries B4 stages in shared memory (LIST_SH, csrc/pgwalk2.cu).
+FEW_RAYS, LIST_STAGED = 256, 256
 # Outputs of each kernel that are float (compared for max_abs_err too);
 # all outputs must be equal.
 FLOAT_OUTPUTS = {"cull": (1,), "intersect": (0,), "cull_pg2": (),
@@ -276,6 +287,26 @@ def popcount(words):
     return sum(int(((w >> k) & 1).sum()) for k in range(16))
 
 
+def listed_clusters(clist, bits, counts):
+    """Clusters a B4/B4s call walks: the set bits of its listed words."""
+    import torch
+    listed = (torch.arange(clist.shape[1], device=bits.device)[None, :]
+              < counts)
+    return popcount(torch.where(listed, bits, 0))
+
+
+def pgwalk2_split(rays8, clist, group):
+    """(groups, threads per block, blocks per group P) of a B4/B4s call
+    on these operands, as its wrapper chooses them."""
+    import torch
+
+    from srt_tpu_torch.ops import traversal as tr
+    n_groups = rays8.shape[0] // group
+    sms = torch.cuda.get_device_properties(rays8.device).multi_processor_count
+    return (n_groups, *tr.pgwalk2_shape(n_groups, clist.shape[1], group,
+                                        sms))
+
+
 def bound_of(name, args, out):
     """(bound_ms, bound_by) of one kernel call: the larger of the bytes
     its tensor inputs and outputs must move (each once) over the card's
@@ -305,11 +336,8 @@ def bound_of(name, args, out):
         ops = args["tile"] * (supers * tr.SUPER * SLAB_OPS
                               + clusters * tr.CLUSTER * WOOP_OPS)
     elif name.startswith("pgwalk2"):
-        listed = (torch.arange(args["clist"].shape[1],
-                               device=args["bits"].device)[None, :]
-                  < args["counts"])
-        words = torch.where(listed, args["bits"], 0)
-        ops = popcount(words) * args["group"] * tr.CLUSTER * WOOP_OPS
+        ops = (listed_clusters(args["clist"], args["bits"], args["counts"])
+               * args["group"] * tr.CLUSTER * WOOP_OPS)
     elif name == "pgwalk":
         ops = popcount(args["mask"]) * tr.GROUP * tr.CLUSTER * WOOP_OPS
     b_ms, o_ms = moved / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
@@ -376,6 +404,15 @@ def phase_kernels(scene, cases):
     hits = int((tr.pgwalk2(*tr.cull_pg2(bounce8, cb8, s_count, 32), bounce8,
                            woop, 32)[1] >= 0).sum())
     check(hits > n // 4, f"only {hits} of {n} bounce rays hit the sphere")
+    pgwalk2_split_cases(3, "pgwalk2", "", bounce8, shadow8, cb8, s_count,
+                        woop, cases)
+    for group in (8, 1024):
+        rays8 = bounce8[:FEW_RAYS * 16]
+        pg = tr.cull_pg2(rays8, cb8, s_count, group)
+        cases.run(3, "pgwalk2", f"{rays8.shape[0]} bounce rays G={group} "
+                  f"closest-hit P={pgwalk2_split(rays8, pg[0], group)[2]}",
+                  *pg, rays8, woop, group)
+    exact_tie_cases(scene, bounce8, cases)
     cases.run(3, "intersect_count", "headline primary tile 256 closest-hit",
               counts, clist, elist, prim8, cb, woop, 256)
 
@@ -385,6 +422,56 @@ def phase_kernels(scene, cases):
     cols = torch.randperm(n, device=scene.device)
     cases.run(3, "threefry", f"rows_at(0, 18, {n} permuted cols)", sub, 0,
               18, n, cols)
+
+
+def pgwalk2_split_cases(tag, name, label, bounce8, shadow8, cb8, s_count,
+                        woop, cases):
+    """B4 or B4s on FEW_RAYS bounce rays and the same rays as shadow
+    segments at G = 32: few groups, so each group's list is split over
+    P > 1 blocks."""
+    from srt_tpu_torch.ops import traversal as tr
+    for any_hit, rays8 in ((False, bounce8[:FEW_RAYS]),
+                           (True, shadow8[:FEW_RAYS])):
+        kind = "any" if any_hit else "closest"
+        pg = tr.cull_pg2(rays8, cb8, s_count, 32)
+        parts = pgwalk2_split(rays8, pg[0], 32)[2]
+        check(parts > 1, f"{name} on {FEW_RAYS} rays: P={parts}, no split")
+        cases.run(tag, name, f"{label}{FEW_RAYS} bounce rays G=32 {kind}-hit "
+                  f"P={parts}", *pg, rays8, woop, 32, any_hit)
+
+
+def exact_tie_cases(scene, bounce8, cases):
+    """B4 on one model's tables holding the sphere several times (the
+    padded cluster table repeated): every triangle has identical copies in
+    other clusters, each hit is an exact tie, and the first copy's
+    (smaller) index must win, across blocks too.  Kernel against plain,
+    and both against the single sphere's result.  Two copies, then
+    enough copies that some list is longer than the LIST_STAGED entries
+    the kernel stages in shared memory (the rest are read from global
+    memory)."""
+    import torch
+
+    from srt_tpu_torch.ops import traversal as tr
+    _, _, _, cb8, s_count, _ = tr.model_tables(scene, 0)
+    woop = tr.stream_table(scene, 0)
+    few = bounce8[:FEW_RAYS]
+    many = LIST_STAGED // int(tr.cull_pg2(few, cb8, s_count, 32)[2].max()) + 1
+    for copies, rays8 in ((2, few), (2, bounce8), (many, few)):
+        pg = tr.cull_pg2(rays8, torch.cat([cb8] * copies, 1),
+                         copies * s_count, 32)
+        longest = int(pg[2].max())
+        check(copies == 2 or longest > LIST_STAGED,
+              f"sphere x{copies}: longest list {longest} entries, not above "
+              f"{LIST_STAGED}")
+        parts = pgwalk2_split(rays8, pg[0], 32)[2]
+        t, i = cases.run(3, "pgwalk2", f"sphere x{copies} {rays8.shape[0]} "
+                         f"rays G=32 P={parts} ({longest} entries)", *pg,
+                         rays8, torch.cat([woop] * copies), 32)
+        ref = tr.pgwalk2(*tr.cull_pg2(rays8, cb8, s_count, 32), rays8, woop,
+                         32)
+        check(torch.equal(t, ref[0]) and torch.equal(i, ref[1]),
+              f"sphere x{copies}: exact ties did not go to the first copy")
+        check(bool((i >= 0).any()), f"sphere x{copies}: no hits")
 
 
 @contextlib.contextmanager
@@ -441,6 +528,12 @@ def replay_frame(tag, plan, cases, key):
                     else "G=8")
             if "any_hit" in args:
                 mode += " any-hit" if args["any_hit"] else " closest-hit"
+            if name.startswith("pgwalk2"):
+                n_groups, _, parts = pgwalk2_split(rays8, args["clist"],
+                                                   args["group"])
+                listed = listed_clusters(args["clist"], args["bits"],
+                                         args["counts"])
+                mode += f", {n_groups} groups, {listed} listed, P={parts}"
             case = (f"frame launch {k}: {rays8.shape[0]} rays "
                     f"({int((rays8[:, 6] > 0).sum())} live), {mode}")
         fn = getattr(kernel_module(name), name)
@@ -628,6 +721,8 @@ def stream_cases(scene, cases):
             cases.run("6a", "pgwalk2_stream",
                       f"config8 bounce G={group} {kind}-hit", *pg, rays8,
                       woop_s, group, any_hit)
+    pgwalk2_split_cases("6a", "pgwalk2_stream", "config8 ", bounce8, shadow8,
+                        cb8, s_count, woop_s, cases)
     cases.run("6a", "intersect_count",
               "config8 primary tile 256 stream closest-hit", counts, clist,
               elist, prim8, cb, woop_s, 256, stream=True)

@@ -1,8 +1,8 @@
 // Shared device code of the walk kernels (cull.cu, intersect.cu,
 // cull_pg2.cu, pgwalk2.cu, cull_perray.cu, cull_gmask.cu, pgwalk.cu):
 // constants, NaN-propagating min/max, the slab
-// test, the Woop unit-triangle evaluation and the streamed walks'
-// double-buffered async copy stage.  The arithmetic matches the
+// test, the Woop unit-triangle evaluation and the walks' bulk-copy
+// stage.  The arithmetic matches the
 // plain PyTorch versions in srt_tpu_torch/ops/traversal.py operation for
 // operation; the library is built with -fmad=false, so every multiply and
 // add rounds separately on both sides and candidate t agrees bit for bit.
@@ -75,16 +75,13 @@ __device__ __forceinline__ bool slab(float lx, float ly, float lz, float hx,
   return (t_near <= t_far) && (t_far >= 0.f) && (*sel < bound);
 }
 
-// Woop unit-triangle test of lane l of a cluster's [13][128] rows (staged
-// in shared memory, or the table in global memory).  NESTED folds the affine rows right to left (the per-group
-// walk's order), else left to right (the tiled walk's).  About 24
-// multiply-adds per (ray, triangle) plus one division.
+// Woop unit-triangle test of one triangle's 13 rows q.  NESTED folds the
+// affine rows right to left (the per-group walk's order), else left to
+// right (the tiled walk's).  About 24 multiply-adds per (ray, triangle)
+// plus one division.
 template <bool NESTED>
-__device__ __forceinline__ bool woop_eval(const float* __restrict__ w, int l,
+__device__ __forceinline__ bool woop_test(const float (&q)[WOOP_ROWS],
                                           const Ray& r, float* t_out) {
-  float q[WOOP_ROWS];
-#pragma unroll
-  for (int k = 0; k < WOOP_ROWS; ++k) q[k] = w[k * CLUSTER + l];
   float zo, zd, xo, xd, yo, yd;
   if (NESTED) {
     zo = r.ox * q[8] + (r.oy * q[9] + (r.oz * q[10] + q[11]));
@@ -115,6 +112,17 @@ __device__ __forceinline__ bool woop_eval(const float* __restrict__ w, int l,
   return (m >= -EDGE_EPS) && !parallel && (t > T_EPS);
 }
 
+// woop_test of lane l of a cluster's [13][128] rows (staged in shared
+// memory, or the table in global memory).
+template <bool NESTED>
+__device__ __forceinline__ bool woop_eval(const float* __restrict__ w, int l,
+                                          const Ray& r, float* t_out) {
+  float q[WOOP_ROWS];
+#pragma unroll
+  for (int k = 0; k < WOOP_ROWS; ++k) q[k] = w[k * CLUSTER + l];
+  return woop_test<NESTED>(q, r, t_out);
+}
+
 // Stage one cluster's 13 Woop rows ([16, 128] block, row-major) into
 // shared memory; callers synchronise around it.
 __device__ __forceinline__ void stage_cluster(float* __restrict__ w_sh,
@@ -125,34 +133,35 @@ __device__ __forceinline__ void stage_cluster(float* __restrict__ w_sh,
     w_sh[i] = src[i];
 }
 
-// The streamed walks' stage (B2s, B4s): two shared-memory buffers of one
-// cluster's 13 used Woop rows (13 x 128 x 4 = 6,656 bytes, contiguous and
-// 16-byte aligned in the table), each filled by one 1-D bulk copy
-// (cp.async.bulk, the Hopper form of pltpu.make_async_copy) issued by
-// thread 0 and completed on that buffer's mbarrier.  Every thread tracks
-// both barriers' phase bits; control flow around the stage is
-// block-uniform, so the bits agree across the block.
+// The walks' bulk-copy stage (B2s: two buffers; B4/B4s: a ring): shared-
+// memory buffers of one cluster's 13 used Woop rows (13 x 128 x 4 = 6,656
+// bytes, contiguous and 16-byte aligned in the table), each filled by one
+// 1-D bulk copy (cp.async.bulk, the Hopper form of pltpu.make_async_copy)
+// issued by one thread and completed on that buffer's mbarrier.  Every
+// thread tracks the barriers' phase bits; control flow around the stage
+// is block-uniform, so the bits agree across the block.
 constexpr unsigned STAGE_BYTES = WOOP_ROWS * CLUSTER * sizeof(float);
 
 struct Stage {
-  float* buf;      // two buffers of WOOP_ROWS * CLUSTER floats, back to back
-  unsigned bar;    // shared address of buffer 0's mbarrier; buffer 1's at +8
+  float* buf;      // n buffers of WOOP_ROWS * CLUSTER floats, back to back
+  unsigned bar;    // shared address of buffer 0's mbarrier; buffer s's at +8s
   unsigned phase;  // bit s: parity of buffer s's next completion
   __device__ __forceinline__ float* buffer(int s) const {
     return buf + s * (WOOP_ROWS * CLUSTER);
   }
 };
 
-// Thread 0 initialises both barriers (one arrival each: the issuing
-// thread's arrive.expect_tx); the block synchronises before first use.
-// buf: 16-byte aligned shared memory for both buffers; bars: two uint64.
-__device__ __forceinline__ Stage stage_init(float* buf, uint64_t* bars) {
+// Thread 0 initialises n <= 32 barriers (one arrival each: the issuing
+// thread's arrive); the block synchronises before first use.  buf:
+// 16-byte aligned shared memory for n buffers; bars: n uint64.
+__device__ __forceinline__ Stage stage_init(float* buf, uint64_t* bars,
+                                            unsigned n = 2) {
   Stage st;
   st.buf = buf;
   st.bar = (unsigned)__cvta_generic_to_shared(bars);
   st.phase = 0;
   if (threadIdx.x == 0) {
-    for (unsigned s = 0; s < 2; ++s)
+    for (unsigned s = 0; s < n; ++s)
       asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
                        st.bar + 8u * s),
                    "r"(1u)
@@ -163,9 +172,11 @@ __device__ __forceinline__ Stage stage_init(float* buf, uint64_t* bars) {
   return st;
 }
 
-// Thread 0 only: start the copy of cluster c into buffer s.  The caller
+// One thread only: start the copy of cluster c into buffer s.  The caller
 // guarantees every thread has finished reading buffer s (a __syncthreads
-// after its last evaluation) and that no copy into s is in flight.
+// after its last evaluation) and that no copy into s is in flight.  The
+// arrive releases the thread's earlier shared-memory writes to the
+// threads that wait on buffer s.
 __device__ __forceinline__ void stage_issue(const Stage& st, int s,
                                             const float* __restrict__ woop,
                                             int c) {
@@ -186,7 +197,16 @@ __device__ __forceinline__ void stage_issue(const Stage& st, int s,
       : "memory");
 }
 
-// Every thread: wait until buffer s's copy has landed.
+// One thread only: complete buffer s's phase with no copy (an end marker
+// for the threads that wait on it), releasing the thread's earlier
+// shared-memory writes to them.
+__device__ __forceinline__ void stage_arrive(const Stage& st, int s) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(st.bar +
+                                                               8u * s)
+               : "memory");
+}
+
+// Every thread: wait until buffer s's phase has completed.
 __device__ __forceinline__ void stage_wait(Stage& st, int s) {
   const unsigned parity = (st.phase >> s) & 1u;
   const unsigned bar = st.bar + 8u * s;

@@ -43,7 +43,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _WALK_B2 = [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P]
-_WALK_B4 = [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P]
+_WALK_B4 = [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P]
 # C entry points: name -> argument types (the trailing stream included).
 SIGNATURES = {
     "srt_cull": [_P, _P, _I, _I, _I, _P, _P, _P, _P],

@@ -30,9 +30,11 @@ Two more walks are selectable per bounce (``walks="binned"`` / ``"pg"``):
 
 Models above ``STREAM_THRESHOLD_CLUSTERS`` clusters take the streamed
 variants of the walks (B2s ``intersect_stream``, B4s ``pgwalk2_stream``):
-the same contract, with each evaluated cluster's Woop rows copied
-asynchronously into a double-buffered shared-memory stage while the
-previous cluster is evaluated.  ``intersect_count`` (B2c) is the tiled
+the same contract on a Woop table padded to whole supers.  B2s copies
+each evaluated cluster's Woop rows asynchronously into a double-buffered
+shared-memory stage while the previous cluster is evaluated; B4 and B4s
+run one kernel, which keeps its copies two clusters ahead in both
+modes.  ``intersect_count`` (B2c) is the tiled
 walk with per-tile counters (supers processed, clusters evaluated).
 
 Each wrapper runs its hand-written CUDA kernel (``srt_tpu_torch/csrc``) on
@@ -549,10 +551,8 @@ def pgwalk2(clist, bits, counts, rays8, woop, group: int,
 def pgwalk2_stream(clist, bits, counts, rays8, woop, group: int,
                    any_hit: bool = False, plain: bool = False):
     """B4s (replaces ``_pgwalk2_kernel`` with ``stream=True``,
-    traversal_pallas.py:697): B4's contract, with the group's listed
-    clusters copied asynchronously into shared memory, cluster i+1 while
-    cluster i is evaluated.  woop padded to whole supers
-    (``stream_table``)."""
+    traversal_pallas.py:697): B4's contract and kernel on a Woop table
+    padded to whole supers (``stream_table``)."""
     _check_group(group, rays8.shape[0])
     _check_stream_table(woop)
     if plain or _on_cpu(rays8):
@@ -561,13 +561,42 @@ def pgwalk2_stream(clist, bits, counts, rays8, woop, group: int,
                            group, any_hit)
 
 
+# B4/B4s launch shape: PGWALK2_LANES threads per ray (at least 128 a
+# block); each group's list is split over enough blocks that the launch
+# has about PGWALK2_FILL threads per SM, at most PGWALK2_MAX_PARTS blocks
+# per group.  The fill is 32 times an H100 SM's 2,048-thread limit: a few
+# long lists then no longer hold the end of a launch alone.  Chosen with
+# sweep_pgwalk2.py on the headline and config8 frames' own calls.
+PGWALK2_LANES = 4
+PGWALK2_FILL = 32 * 2048
+PGWALK2_MAX_PARTS = 64
+
+
+def pgwalk2_shape(n_groups: int, list_w: int, group: int, sms: int):
+    """(threads per block, blocks per group) of a B4/B4s launch on a card
+    of ``sms`` SMs, from the launch's shape alone (``csrc/pgwalk2.cu``):
+    min(1024, max(PGWALK2_LANES * G, 128)) threads, at most 64 per ray;
+    the split P fills the card when the groups are few and is 1 when they
+    are many."""
+    threads = min(1024, max(PGWALK2_LANES * group, 128), 64 * group)
+    fill = sms * PGWALK2_FILL // max(1, n_groups * threads)
+    return threads, max(1, min(fill, PGWALK2_MAX_PARTS, list_w * SUPER))
+
+
 def _pgwalk2_launch(name, clist, bits, counts, rays8, woop, group, any_hit):
     npad = rays8.shape[0]
-    out_t = torch.empty((npad, 1), dtype=torch.float32, device=rays8.device)
-    out_i = torch.empty((npad, 1), dtype=torch.int32, device=rays8.device)
+    dev = rays8.device
+    n_groups = npad // group
+    threads, parts = pgwalk2_shape(
+        n_groups, clist.shape[1], group,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    keys = (torch.empty((parts, npad), dtype=torch.int64, device=dev)
+            if parts > 1 else None)
+    out_t = torch.empty((npad, 1), dtype=torch.float32, device=dev)
+    out_i = torch.empty((npad, 1), dtype=torch.int32, device=dev)
     _launch(name, _i32(clist), _i32(bits), _i32(counts), clist.shape[1],
-            _f32(rays8), _f32(woop), npad // group, group, int(any_hit),
-            out_t, out_i)
+            _f32(rays8), _f32(woop), n_groups, group, threads, parts, keys,
+            int(any_hit), out_t, out_i)
     return out_t, out_i
 
 

@@ -103,6 +103,13 @@ def operands(scene, seed, mixed, any_hit):
     rays8, _, _ = tr.pack_rays(scene, 0, o, d, t, TILE,
                                t_lo=1e-2 if any_hit else 0.0)
     woop, cb, sbounds, cb8, s, n_cl = tr.model_tables(scene, 0)
+    return dict(rays8=rays8, woop=woop, cb=cb, sbounds=sbounds, cb8=cb8,
+                s=s, **pg2_jax_tables(cb8, s, n_cl))
+
+
+def pg2_jax_tables(cb8, s, n_cl):
+    """The JAX pg2 cull's padded cluster table ``cb8_j`` and bitpack matrix
+    ``w_bp`` (numpy) for the port's cb8 [8, 16*s] of n_cl real clusters."""
     c_pad = -(-cb8.shape[1] // jax_tp.CHUNK_C) * jax_tp.CHUNK_C
     cb8_j = np.full((8, c_pad), np.nan, np.float32)
     cb8_j[:, :cb8.shape[1]] = cb8.numpy()
@@ -111,8 +118,7 @@ def operands(scene, seed, mixed, any_hit):
     w_bp = np.where((c_idx[:, None] < n_cl)
                     & (c_idx[:, None] // tr.SUPER == np.arange(s)[None, :]),
                     (1 << (c_idx % tr.SUPER))[:, None], 0).astype(np.float32)
-    return dict(rays8=rays8, woop=woop, cb=cb, sbounds=sbounds, cb8=cb8,
-                s=s, cb8_j=cb8_j, w_bp=w_bp)
+    return dict(cb8_j=cb8_j, w_bp=w_bp)
 
 
 def j(x):
