@@ -11,7 +11,11 @@ Phases, one line each; the last line is printed only when all pass:
 2. Build: nvcc builds ``srt_tpu_torch/csrc`` into ``build/srt_tpu_torch``.
 3. Kernel vs plain PyTorch version, on the card, at the headline scene's
    tables (101,760 triangles, 50 superclusters) and 65,536 rays per case:
-   outputs must be equal; median times of both.  B4 also on few groups
+   outputs must be equal; median times of both.  B2 also at tile 32 on
+   one tile and on eight (closest and any-hit; some any-hit tile must end
+   early); B3 also at G = 8 and G = 1024 and on warps of axis-parallel
+   rays (infinite reciprocals, origins on box faces and zero
+   coordinates).  B4 also on few groups
    (256 rays at G = 32, so each group's list is split over P > 1
    blocks), at G = 8 and G = 1024 (4,096 rays), and on the sphere's
    tables repeated (every hit an exact tie, which the first copy must
@@ -31,9 +35,10 @@ Phases, one line each; the last line is printed only when all pass:
    image (rtol 1e-4, atol 1e-5).
 6. The config8 scene (``bench_suite.py`` config8): ``uv_sphere(360, 700,
    radius=2.0)``, 502,600 triangles in 3,927 clusters, above the stream
-   threshold, so the plan walks with the streamed kernels.  (a) B2s and
-   B4s against their plain versions at 65,536 rays on its tables, and B4s
-   on 256 rays at G = 32 (P > 1);
+   threshold, so the plan walks with the streamed kernels.  (a) B2s, B3
+   (246 supers: four chunks of staged boxes) and B4s against their plain
+   versions at 65,536 rays on its tables, B2s at tile 32 on one and eight
+   tiles, and B4s on 256 rays at G = 32 (P > 1);
    (b) resident vs streamed kernels on both scenes' tables, same rays,
    equal outputs, ms of both; (c) one untimed 512x512, max_depth 2 frame
    whose every launch is replayed through its plain version and which
@@ -58,7 +63,10 @@ Each path (the headline frames, the config8 frames, the counter run, the
 binned frames, the pg frames) is driven with the launch counts set to 0
 just before it and read just after; every kernel must be launched by its
 path.  Each replayed B4/B4s launch also prints its groups, the clusters
-its lists name and the split P its wrapper chose.  Every kernel case also
+its lists name and the split P its wrapper chose; each B3 launch its
+groups and the super and cluster tests a two-level cull needs; each
+B2/B2s launch its tiles, the supers processed and clusters evaluated
+(B2c's counters) and its lanes per ray L.  Every kernel case also
 prints its bound: the larger of the bytes
 its inputs and outputs must move over 3.35 TB/s and the operations these
 inputs need over 67 TFLOP/s (FP32 outside the tensor cores; the H100 SXM
@@ -307,18 +315,57 @@ def pgwalk2_split(rays8, clist, group):
                                         sms))
 
 
+def cull_tests(args):
+    """(super tests, cluster tests) a two-level cull (B3, B6) needs on
+    these inputs: S per live ray, and 16 per (live ray, super it enters
+    before its t_max), the supers entered counted with B1's slab pass at
+    width 1 (``traversal._super_entries``)."""
+    from srt_tpu_torch.ops import traversal as tr
+    rays8, s = args["rays8"], args["s_count"]
+    sbounds = args.get("sbounds")
+    if sbounds is None:
+        sbounds = tr.super_bounds(args["cb8"], s)
+    live = int((rays8[:, 6] > 0).sum())
+    entered = int((tr._super_entries(rays8, sbounds, 1) < tr.BIG).sum())
+    return live * s, entered * tr.SUPER
+
+
+def walk_counts(name, args, out):
+    """(supers processed, clusters evaluated) of a tiled-walk call: B2c's
+    counters on the same inputs."""
+    from srt_tpu_torch.ops import traversal as tr
+    ctr = out[2] if name == "intersect_count" else tr.intersect_count(
+        args["counts"], args["clist"], args["elist"], args["rays8"],
+        args["cb"], args["woop"], args["tile"], args["any_hit"],
+        stream=name == "intersect_stream")[2]
+    return tuple(ctr.sum(0).tolist())
+
+
+def intersect_lanes(rays8, tile):
+    """Lanes per ray of a B2/B2s/B2c call on these operands, as its
+    wrapper chooses them."""
+    import torch
+
+    from srt_tpu_torch.ops import traversal as tr
+    sms = torch.cuda.get_device_properties(rays8.device).multi_processor_count
+    return tr.intersect_threads(tile, rays8.shape[0], sms) // tile
+
+
 def bound_of(name, args, out):
-    """(bound_ms, bound_by) of one kernel call: the larger of the bytes
-    its tensor inputs and outputs must move (each once) over the card's
-    memory rate and the operations these inputs need over its FP32 rate.
-    The walks count the clusters their gates admit on these inputs (B2:
-    B2c's counters on the same call; B4, B7: the set bits of the words
-    they walk); the culls count the live rays' slab tests."""
+    """(bound_ms, bound_by, work) of one kernel call: the larger of the
+    bytes its tensor inputs and outputs must move (each once) over the
+    card's memory rate and the operations these inputs need over its FP32
+    rate; ``work`` says what was counted.  The walks count the clusters
+    their gates admit on these inputs (B2: B2c's counters on the same
+    call; B4, B7: the set bits of the words they walk); B1 and B5 count
+    the live rays' super slab tests, B3 and B6 the tests of a two-level
+    cull (``cull_tests``)."""
     import torch
 
     from srt_tpu_torch.ops import traversal as tr
     out = as_tuple(out)
     moved = nbytes(*[v for v in args.values() if torch.is_tensor(v)], *out)
+    work = ""
     if name == "threefry":
         ops = out[0].numel() * THREEFRY_OPS
     else:
@@ -326,22 +373,22 @@ def bound_of(name, args, out):
     if name in ("cull", "cull_perray"):
         ops = live * args["sbounds"].shape[1] * SLAB_OPS
     elif name in ("cull_pg2", "cull_gmask"):
-        ops = live * args["s_count"] * tr.SUPER * SLAB_OPS
+        supers, clusters = cull_tests(args)
+        ops = (supers + clusters) * SLAB_OPS
+        work = f"{supers} super + {clusters} cluster tests"
     elif name.startswith("intersect"):
-        ctr = out[2] if name == "intersect_count" else tr.intersect_count(
-            args["counts"], args["clist"], args["elist"], args["rays8"],
-            args["cb"], args["woop"], args["tile"], args["any_hit"],
-            stream=name == "intersect_stream")[2]
-        supers, clusters = ctr.sum(0).tolist()
+        supers, clusters = walk_counts(name, args, out)
         ops = args["tile"] * (supers * tr.SUPER * SLAB_OPS
                               + clusters * tr.CLUSTER * WOOP_OPS)
+        work = (f"{supers} supers processed, {clusters} clusters evaluated, "
+                f"L={intersect_lanes(args['rays8'], args['tile'])}")
     elif name.startswith("pgwalk2"):
         ops = (listed_clusters(args["clist"], args["bits"], args["counts"])
                * args["group"] * tr.CLUSTER * WOOP_OPS)
     elif name == "pgwalk":
         ops = popcount(args["mask"]) * tr.GROUP * tr.CLUSTER * WOOP_OPS
     b_ms, o_ms = moved / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
-    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+    return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations", work
 
 
 class Cases:
@@ -361,14 +408,15 @@ class Cases:
         k_ms, k_out = timed_median(lambda: fn(*args, **kw))
         p_ms, p_out = timed_median(lambda: fn(*args, **kw, plain=True))
         err = compare(name, case, k_out, p_out)
-        b_ms, b_by = bound_of(name, dict(bound.arguments), k_out)
+        b_ms, b_by, work = bound_of(name, dict(bound.arguments), k_out)
         self.results[name]["cases"].append(dict(
             case=case, ms=k_ms, plain_ms=p_ms, max_abs_err=err,
             bound_ms=b_ms, bound_by=b_by))
         print(f"[{tag}] {name:16s} {case:40s} kernel {k_ms:9.3f} ms  plain "
               f"{p_ms:9.3f} ms  bound {b_ms:.5f} ms ({b_by}, "
               f"{100 * b_ms / k_ms:.2f}% reached)  equal (max_abs_err "
-              f"{err})  [{self.card}]", flush=True)
+              f"{err}){f'  [{work}]' if work else ''}  [{self.card}]",
+              flush=True)
         return k_out
 
     def replayed(self, name, case, p_ms, err):
@@ -394,13 +442,19 @@ def phase_kernels(scene, cases):
         kind = "any" if any_hit else "closest"
         cases.run(3, "intersect", f"primary tile 256 {kind}-hit", counts,
                   clist, elist, prim8, cb, woop, 256, any_hit)
+    few_tile_cases(3, "intersect", scene, woop, cases)
     for group in (128, 32):
         for any_hit, rays8 in ((False, bounce8), (True, shadow8)):
             kind = "any" if any_hit else "closest"
             pg = cases.run(3, "cull_pg2", f"bounce G={group} {kind}-hit rays",
-                           rays8, cb8, s_count, group)
+                           rays8, cb8, s_count, group, sbounds)
             cases.run(3, "pgwalk2", f"bounce G={group} {kind}-hit", *pg,
                       rays8, woop, group, any_hit)
+    for group in (8, 1024):
+        cases.run(3, "cull_pg2", f"bounce G={group} closest-hit rays",
+                  bounce8, cb8, s_count, group, sbounds)
+    cases.run(3, "cull_pg2", "axis-parallel warps G=32",
+              axis_rays(bounce8, cb8), cb8, s_count, 32, sbounds)
     hits = int((tr.pgwalk2(*tr.cull_pg2(bounce8, cb8, s_count, 32), bounce8,
                            woop, 32)[1] >= 0).sum())
     check(hits > n // 4, f"only {hits} of {n} bounce rays hit the sphere")
@@ -422,6 +476,67 @@ def phase_kernels(scene, cases):
     cols = torch.randperm(n, device=scene.device)
     cases.run(3, "threefry", f"rows_at(0, 18, {n} permuted cols)", sub, 0,
               18, n, cols)
+
+
+def axis_rays(rays8, cb8):
+    """rays8 with every other warp of 32 rays made axis-parallel (each ray
+    along +-x, +-y or +-z, so two infinite reciprocals), some of those
+    from an origin with a zero coordinate or on a cluster's box face on
+    an axis its direction does not move along."""
+    import torch
+    r = rays8.clone()
+    idx = torch.arange(r.shape[0], device=r.device)
+    axis = idx % 3
+    rows = idx[(idx // 32) % 2 == 1]
+    d = torch.zeros((rows.numel(), 3), device=r.device)
+    d[torch.arange(rows.numel()), axis[rows]] = torch.where(
+        (rows // 3) % 2 == 0, 1.0, -1.0)
+    r[rows, 3:6] = d
+    zero = rows[rows % 9 == 0]
+    r[zero, (axis[zero] + 1) % 3] = 0.0
+    face = rows[rows % 9 == 3]
+    real = int((~torch.isnan(cb8[0])).sum())
+    r[face, (axis[face] + 2) % 3] = cb8[(axis[face] + 2) % 3, face % real]
+    return r
+
+
+def few_tile_cases(tag, name, scene, woop, cases):
+    """B2 or B2s (``name``) at tile 32 on 8 tiles of rays from the
+    headline camera to a 16x16 grid of points of the square [-1, 1]^2 at
+    z = 0 (inside the sphere's silhouette, so every ray hits), and on the
+    tile of them with the longest list, closest and any-hit.  Any-hit
+    must end some tile early: every ray resolved and fewer supers
+    processed than listed."""
+    import torch
+
+    from srt_tpu_torch.ops import traversal as tr
+    _, cb, sbounds, _, _, _ = tr.model_tables(scene, 0)
+    dev = scene.device
+    g = torch.linspace(-1.0, 1.0, 16, device=dev)
+    target = torch.stack([g.repeat(16), g.repeat_interleave(16),
+                          torch.zeros(256, device=dev)])
+    origin = torch.tensor(HEADLINE_CAMERA["origin"], device=dev)[:, None]
+    rays8 = tr.pack_rays(scene, 0, origin.expand(3, 256), target - origin,
+                         float("inf"), 32)[0]
+    lists = tr.cull(rays8, sbounds, 32)
+    t = int(lists[2][:, 0].argmax())
+    one = [x[t:t + 1] for x in lists]
+    for label, (clist, elist, counts), r8 in (
+            ("1 tile", one, rays8[32 * t:32 * (t + 1)]),
+            ("8 tiles", lists, rays8)):
+        for any_hit in (False, True):
+            kind = "any" if any_hit else "closest"
+            cases.run(tag, name, f"{label} of 32 primaries {kind}-hit",
+                      counts, clist, elist, r8, cb, woop, 32, any_hit)
+    clist, elist, counts = lists
+    _, i, ctr = tr.intersect_count(counts, clist, elist, rays8, cb, woop, 32,
+                                   True, stream=name == "intersect_stream")
+    resolved = ((i >= 0) | (rays8[:, 6:7] <= 0)).view(-1, 32).all(1)
+    early = int((resolved & (ctr[:, 0] < counts[:, 0])).sum())
+    check(early > 0, f"{name} any-hit on 8 tiles of 32: no tile ended early")
+    print(f"[{tag}] {name} any-hit, 8 tiles of 32: {early} tiles ended "
+          f"early (supers processed per tile {ctr[:, 0].tolist()} of "
+          f"{counts[:, 0].tolist()} listed)", flush=True)
 
 
 def pgwalk2_split_cases(tag, name, label, bounce8, shadow8, cb8, s_count,
@@ -534,6 +649,10 @@ def replay_frame(tag, plan, cases, key):
                 listed = listed_clusters(args["clist"], args["bits"],
                                          args["counts"])
                 mode += f", {n_groups} groups, {listed} listed, P={parts}"
+            elif name == "cull_pg2":
+                mode += f", {rays8.shape[0] // args['group']} groups"
+            elif name.startswith("intersect"):
+                mode += f", {rays8.shape[0] // args['tile']} tiles"
             case = (f"frame launch {k}: {rays8.shape[0]} rays "
                     f"({int((rays8[:, 6] > 0).sum())} live), {mode}")
         fn = getattr(kernel_module(name), name)
@@ -544,13 +663,14 @@ def replay_frame(tag, plan, cases, key):
         err = compare(name, case, k_out, p_out)
         cases.replayed(name, case, p_ms, err)
         k_ms = timed_median(lambda: fn(**args), reps=5)[0]
-        b_ms, b_by = bound_of(name, args, k_out)
+        b_ms, b_by, work = bound_of(name, args, k_out)
         acc = per_frame.setdefault(name, [0, 0.0, 0.0, 0.0])
         for q, v in enumerate((1, k_ms, b_ms, p_ms)):
             acc[q] += v
         print(f"[{tag}] {name:16s} {case:56s} kernel {k_ms:.4f} ms, bound "
               f"{b_ms:.5f} ms ({b_by}); equals plain (plain {p_ms:.1f} ms, "
-              f"max_abs_err {err})  [{cases.card}]", flush=True)
+              f"max_abs_err {err}){f'; {work}' if work else ''}  "
+              f"[{cases.card}]", flush=True)
     for name, (n, k_ms, b_ms, p_ms) in per_frame.items():
         print(f"[{tag}] per frame {name:16s} {n:2d} launches, kernel "
               f"{k_ms:.4f} ms, bound {b_ms:.5f} ms ({100 * b_ms / k_ms:.2f}% "
@@ -714,10 +834,13 @@ def stream_cases(scene, cases):
         cases.run("6a", "intersect_stream",
                   f"config8 primary tile 256 {kind}-hit", counts, clist,
                   elist, prim8, cb, woop_s, 256, any_hit)
+    few_tile_cases("6a", "intersect_stream", scene, woop_s, cases)
     for group in (128, 32):
         for any_hit, rays8 in ((False, bounce8), (True, shadow8)):
             kind = "any" if any_hit else "closest"
-            pg = tr.cull_pg2(rays8, cb8, s_count, group)
+            pg = cases.run("6a", "cull_pg2",
+                           f"config8 bounce G={group} {kind}-hit rays",
+                           rays8, cb8, s_count, group, sbounds)
             cases.run("6a", "pgwalk2_stream",
                       f"config8 bounce G={group} {kind}-hit", *pg, rays8,
                       woop_s, group, any_hit)
@@ -844,10 +967,10 @@ def phase_counters(scenes, cases):
         mean_busy = ctr[busy].float().mean(0).tolist()
         print(f"[7] B2c {label:8s} {ctr.shape[0]} tiles of 256 primaries: "
               f"per tile supers processed {mean_all[0]:.4f}, clusters "
-              f"evaluated {mean_all[1]:.4f}; over the {int(busy.sum())} "
-              f"tiles that processed a super: {mean_busy[0]:.4f} / "
-              f"{mean_busy[1]:.4f}; equal to plain  [{cases.card}]",
-              flush=True)
+              f"evaluated {mean_all[1]:.4f} (most {int(ctr[:, 1].max())}); "
+              f"over the {int(busy.sum())} tiles that processed a super: "
+              f"{mean_busy[0]:.4f} / {mean_busy[1]:.4f}; equal to plain  "
+              f"[{cases.card}]", flush=True)
 
 
 def binned_cases(scene, cases):

@@ -11,8 +11,8 @@
 //
 // What bounds it: 16*S slab tests (~26 operations each) per ray, reading
 // the cluster boxes as warp-wide broadcasts; no data-dependent loop.
-// Design: cull_pg2.cu's with the group fixed at 8 and no compaction: one
-// thread per ray, each super's word built in a register, the group OR a
+// Design: one thread per ray, each super's word built in a register
+// (no super pre-test, unlike cull_pg2.cu), the group OR a
 // shuffle-xor over offsets 4, 2, 1, the group's first lane writing.  The
 // TPU's 256-cluster chunks and MXU bitpack matmul have no counterpart.
 // Warps whose rays are all dead skip the slab tests and write 0, the same

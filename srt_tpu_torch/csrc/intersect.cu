@@ -1,40 +1,54 @@
 // B2: tiled walk.  Replaces _intersect_kernel (srt_tpu/ops/traversal_pallas
-// .py:1061, launched by _launch) in its three modes: resident (B2),
-// stream=True (B2s) and count_evals=True (B2c), as template<STREAM, COUNT>.
+// .py:1061, launched by _launch at :1327) in its three modes: resident
+// (B2), stream=True (B2s) and count_evals=True (B2c).  B2 and B2s run one
+// kernel and differ only in the table they are given (B2s's is padded to
+// whole supers, which the TPU's per-super copies need); B2c is the same
+// kernel with counters, template<COUNT>.
 //
 // Per tile: walk the tile's ordered super list.  A super is processed only
 // while its entry distance is below the tile gate (the max over the tile's
 // rays of their best t) and, in any-hit mode, until every ray is resolved
 // (hit inside t_max, or dead).  A processed super admits each of its 16
-// clusters that some ray of the tile enters before its current best t;
-// every admitted cluster's 128 triangles get a Woop evaluation.  Output:
-// the candidate t and local triangle id of the lexicographic min of
-// (t, index) (t_max and -1 on a miss).  Tie rule: smallest index; the TPU
-// gives same-lane cross-super exact-t ties to the nearest-entry super
-// instead (ROADMAP.md section C, measure zero).
+// clusters that some ray of the tile enters before its best t at the
+// start of the super; every admitted cluster's 128 triangles get a Woop
+// evaluation.  Output: the candidate t and local triangle id of the
+// lexicographic min of (t, index) (t_max and -1 on a miss).  Tie rule:
+// smallest index; the TPU gives same-lane cross-super exact-t ties to the
+// nearest-entry super instead (ROADMAP.md section C, measure zero).
 //
-// What bounds it: ~24 FMA-equivalents and one division per (ray,
-// triangle), 128 triangles per admitted cluster, in a per-thread loop
-// whose length depends on the data: latency-bound walks, not bandwidth.
-// Design: one block per tile, one thread per ray; each admitted cluster's
-// 13x128 Woop rows are staged in shared memory and read as broadcasts by
-// every thread; the cluster word is a warp OR reduction plus a shared
-// atomicOr; the tile gate is a block max; the any-hit early-out is
-// __syncthreads_and.  The cluster gate uses each ray's best t at the
-// start of the super, as the TPU's does.
+// What bounds it: ~52 operations per (ray, triangle) of the admitted
+// clusters and 26 per cluster slab test; each admitted cluster's 13 Woop
+// rows (6,656 bytes) are read once per tile.  What held the first design
+// (one block of `tile` threads, one thread per ray evaluating all 128
+// triangles of every admitted cluster as one serial chain; a cooperative
+// copy between two barriers per cluster in the resident mode, a
+// double-buffered copy restarted at every super in the streamed one)
+// back, and what this one does:
 //
-// STREAM (B2s): the TPU copies a whole super (16 clusters, 128 KB) per
-// list entry into two VMEM buffers; two such buffers exceed the 227 KB of
-// shared memory a block may use on the H100.  Here the stage is per
-// admitted cluster (6,656 bytes): a 1-D bulk copy (cp.async.bulk
-// completing on an mbarrier, traversal_common.cuh) of cluster i+1 is
-// issued while cluster i is evaluated.  The next cluster is known only
-// within a super (the next super's gate and word depend on this super's
-// results), so the pipeline restarts at each processed super and every
-// copy it issues is waited before the super ends: no copy is in flight
-// when the any-hit early-out skips the rest of the list or the block
-// exits (the TPU needs its pend/drain logic, traversal_pallas.py:1145-
-// 1178, 1296-1308, because it prefetches the next list entry).
+// 1. One serial chain per ray, and launches of few tiles (the 65,536-ray
+//    cases, 256 tiles; config8's primaries, 1,024) left the card under-
+//    filled.  Now a tile's block has L * tile threads (L lanes per ray,
+//    chosen by the wrapper, at most 1024 threads); thread t takes ray
+//    t mod tile and, in each admitted cluster, every L-th pair of
+//    triangles as two independent chains, from 8-byte broadcast reads of
+//    shared memory (a warp's 32 threads share one lane).  The 16 cluster
+//    slab tests of a super are split over the lanes too.  The gates need
+//    each ray's best t only at the start of each super and the any-hit
+//    test only at its end, and the (t, index) minimum does not depend on
+//    the order of evaluation, so the lanes keep private minima and meet
+//    in shared memory once per processed super that admitted a cluster.
+// 2. Copies did not overlap the evaluation.  Now both tables go through a
+//    ring of RING bulk-copy buffers (traversal_common.cuh): as soon as a
+//    super's cluster word is known, one thread issues the copies of its
+//    first RING admitted clusters, and each buffer freed by an evaluation
+//    takes the super's next admitted cluster.  The next super's clusters
+//    depend on this super's results, so every copy a super issues is
+//    waited within the super: none is in flight at the any-hit early-out
+//    or when the block exits.
+// 3. One block per SM and tiles of very different work: a long tile
+//    started last held the end of the launch.  order, when given, maps
+//    block b to tile order[b]; the streamed walk's wrapper passes its
+//    tiles longest list first.
 //
 // COUNT (B2c): thread 0 counts the supers processed and the popcount of
 // each processed super's cluster word, written to ctr[tile] at the end.
@@ -44,127 +58,167 @@ namespace {
 
 using namespace srt;
 
-template <bool STREAM, bool COUNT>
-__global__ void intersect_kernel(const int* __restrict__ counts,
-                                 const int* __restrict__ clist,
-                                 const float* __restrict__ elist, int list_w,
-                                 const float* __restrict__ rays8,
-                                 const float* __restrict__ cb,
-                                 const float* __restrict__ woop, int tile,
-                                 int any_hit, float* __restrict__ out_t,
-                                 int* __restrict__ out_i,
-                                 int* __restrict__ ctr) {
-  __shared__ __align__(128) float w_sh[(STREAM ? 2 : 1) * WOOP_ROWS * CLUSTER];
-  __shared__ __align__(8) uint64_t bars[2];
-  __shared__ unsigned word_sh;
+constexpr int RING = 4;       // cluster buffers
+constexpr int PAIRS = CLUSTER / 2;
+constexpr int MAX_THREADS = 1024;
+
+// Lexicographic (t, index) update of a lane's running minimum.
+__device__ __forceinline__ void lex_take(float t, int i, float& bt, int& bi) {
+  if (t < bt || (t == bt && i < bi)) {
+    bt = t;
+    bi = i;
+  }
+}
+
+template <bool COUNT>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
+    intersect_kernel(const int* __restrict__ counts,
+                     const int* __restrict__ clist,
+                     const float* __restrict__ elist, int list_w,
+                     const float* __restrict__ rays8,
+                     const float* __restrict__ cb,
+                     const float* __restrict__ woop,
+                     const int* __restrict__ order, int tile, int any_hit,
+                     float* __restrict__ out_t, int* __restrict__ out_i,
+                     int* __restrict__ ctr) {
+  __shared__ __align__(128) float ring[RING * WOOP_ROWS * CLUSTER];
+  __shared__ __align__(8) uint64_t bars[RING];
+  __shared__ float red_t[MAX_THREADS];
+  __shared__ int red_i[MAX_THREADS];
+  __shared__ unsigned word_sh[2][32];  // per warp, by processed-super parity
   __shared__ float wmax_sh[32];
-  __shared__ float tbm_sh;
-  const int tile_id = blockIdx.x;
   const int tid = threadIdx.x;
-  const size_t ray = (size_t)tile_id * tile + tid;
+  const int lanes = blockDim.x / tile;
+  const int lane = tid / tile;
+  const int rid = tid - lane * tile;
+  const int warp = tid >> 5, n_warps = blockDim.x >> 5;
+  const int tile_id = order ? order[blockIdx.x] : blockIdx.x;
+  const size_t ray = (size_t)tile_id * tile + rid;
+  const size_t row = (size_t)tile_id * list_w;
   const Ray r = load_ray(rays8, ray);
   const float ix = 1.f / r.dx, iy = 1.f / r.dy, iz = 1.f / r.dz;
   float bt = r.t_max;
   int bi = MISS_IDX;
   float tbm = BIG;
-  bool done = false;
+  bool done = false, gated = false;
+  int parity = 0, next = 0;  // next: ring position of the next copy
   int n_super = 0, n_cluster = 0;
   const int cnt = counts[tile_id];
-  Stage st;
-  if (STREAM) st = stage_init(w_sh, bars);
+  Stage st = stage_init(ring, bars, RING);  // synchronises the block
 
-  for (int j = 0; j < cnt; ++j) {
+  for (int j = 0; j < cnt && !done; ++j) {
     // Block-uniform gate: tbm and done come from block reductions.
-    if (!(elist[(size_t)tile_id * list_w + j] < tbm) || done) continue;
-    const int s = clist[(size_t)tile_id * list_w + j];
+    if (!(elist[row + j] < tbm)) continue;
+    const int s = clist[row + j];
     const float* b = cb + (size_t)s * 8 * SUPER;
     unsigned mine = 0;
-#pragma unroll 4
-    for (int k = 0; k < SUPER; ++k) {
+    for (int k = lane; k < SUPER; k += lanes) {
       float sel;
       if (slab<false>(b[k], b[SUPER + k], b[2 * SUPER + k], b[3 * SUPER + k],
                       b[4 * SUPER + k], b[5 * SUPER + k], r.ox, r.oy, r.oz,
                       ix, iy, iz, bt, &sel))
         mine |= 1u << k;
     }
-    if (tid == 0) word_sh = 0;
-    __syncthreads();
     mine = __reduce_or_sync(FULL, mine);
-    if ((tid & 31) == 0 && mine) atomicOr(&word_sh, mine);
+    if ((tid & 31) == 0) word_sh[parity][warp] = mine;
     __syncthreads();
-    unsigned word = word_sh;
+    unsigned word = 0;
+    for (int w = 0; w < n_warps; ++w) word |= word_sh[parity][w];
+    parity ^= 1;
+    const int n = __popc(word);
     if (COUNT) {
       ++n_super;
-      n_cluster += __popc(word);
+      n_cluster += n;
     }
-    int slot = 0;
-    if (STREAM && word && tid == 0)
-      stage_issue(st, 0, woop, s * SUPER + __ffs(word) - 1);
-    while (word) {
-      const int k = __ffs(word) - 1;
-      word &= word - 1;
-      const int c = s * SUPER + k;
-      const float* w;
-      if (STREAM) {
-        if (word && tid == 0)
-          stage_issue(st, slot ^ 1, woop, s * SUPER + __ffs(word) - 1);
-        stage_wait(st, slot);
-        w = st.buffer(slot);
-      } else {
-        stage_cluster(w_sh, woop, c);
-        __syncthreads();
-        w = w_sh;
+    // Nothing admitted: the best t, so the gates, are as the last
+    // processed super left them.
+    if (n == 0 && gated) continue;
+
+    unsigned pend = word;  // thread 0: admitted clusters not yet issued
+    if (tid == 0)
+      for (int m = 0; m < n && m < RING; ++m) {
+        stage_issue(st, (next + m) % RING, woop, s * SUPER + __ffs(pend) - 1);
+        pend &= pend - 1;
       }
+    unsigned rest = word;
+    for (int m = 0; m < n; ++m) {
+      const int c = s * SUPER + __ffs(rest) - 1;
+      rest &= rest - 1;
+      const int slot = (next + m) % RING;
+      stage_wait(st, slot);
+      const float* w = st.buffer(slot);
       const int base = c * CLUSTER;
-      for (int l = 0; l < CLUSTER; ++l) {
-        float t;
-        bool valid = woop_eval<false>(w, l, r, &t);
-        if (any_hit) valid = valid && (t > r.t_lo);
-        if (valid && (t < bt || (t == bt && base + l < bi))) {
-          bt = t;
-          bi = base + l;
+      for (int v = lane; v < PAIRS; v += lanes) {
+        float qa[WOOP_ROWS], qb[WOOP_ROWS];
+#pragma unroll
+        for (int k = 0; k < WOOP_ROWS; ++k) {
+          const float2 q2 = reinterpret_cast<const float2*>(w + k * CLUSTER)[v];
+          qa[k] = q2.x;
+          qb[k] = q2.y;
         }
+        float ta, tb;
+        bool va = woop_test<false>(qa, r, &ta);
+        bool vb = woop_test<false>(qb, r, &tb);
+        if (any_hit) {
+          va = va && (ta > r.t_lo);
+          vb = vb && (tb > r.t_lo);
+        }
+        if (va) lex_take(ta, base + 2 * v, bt, bi);
+        if (vb) lex_take(tb, base + 2 * v + 1, bt, bi);
       }
       __syncthreads();  // the buffer is free again
-      slot ^= 1;
+      if (tid == 0 && pend) {
+        stage_issue(st, slot, woop, s * SUPER + __ffs(pend) - 1);
+        pend &= pend - 1;
+      }
+    }
+    next = (next + n) % RING;
+
+    // The lanes of a ray meet: every lane takes the ray's minimum.
+    if (lanes > 1 && n > 0) {
+      red_t[tid] = bt;
+      red_i[tid] = bi;
+      __syncthreads();
+      for (int l = 0; l < lanes; ++l)
+        lex_take(red_t[rid + l * tile], red_i[rid + l * tile], bt, bi);
     }
     // Tighten the gates: block max of the per-ray best t.
-    float m = bt;
+    float mx = bt;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
-    if ((tid & 31) == 0) wmax_sh[tid >> 5] = m;
-    __syncthreads();
-    if (tid == 0) {
-      float mm = wmax_sh[0];
-      for (int w = 1; w < (int)(blockDim.x >> 5); ++w) mm = fmaxf(mm, wmax_sh[w]);
-      tbm_sh = mm;
-    }
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+    if ((tid & 31) == 0) wmax_sh[warp] = mx;
     if (any_hit) {
       // Resolved: some hit inside t_max, or dead (t_max <= 0).
       done = __syncthreads_and((bt < r.t_max) || (r.t_max <= 0.f)) != 0;
     } else {
       __syncthreads();
     }
-    tbm = tbm_sh;
+    tbm = wmax_sh[0];
+    for (int w = 1; w < n_warps; ++w) tbm = fmaxf(tbm, wmax_sh[w]);
+    gated = true;
   }
-  out_t[ray] = bt;
-  out_i[ray] = (bt < r.t_max) ? bi : -1;
+  if (lane == 0) {
+    out_t[ray] = bt;
+    out_i[ray] = (bt < r.t_max) ? bi : -1;
+  }
   if (COUNT && tid == 0) {
     ctr[2 * tile_id] = n_super;
     ctr[2 * tile_id + 1] = n_cluster;
   }
 }
 
-template <bool STREAM, bool COUNT>
+template <bool COUNT>
 int launch(const int* counts, const int* clist, const float* elist,
            int list_w, const float* rays8, const float* cb, const float* woop,
-           int n_tiles, int tile, int any_hit, float* out_t, int* out_i,
-           int* ctr, void* stream) {
+           const int* order, int n_tiles, int tile, int threads, int any_hit,
+           float* out_t, int* out_i, int* ctr, void* stream) {
+  if (tile < 32 || tile % 32 || threads % tile || threads > MAX_THREADS)
+    return (int)cudaErrorInvalidValue;
   if (n_tiles > 0)
-    intersect_kernel<STREAM, COUNT><<<n_tiles, tile, 0, (cudaStream_t)stream>>>(
-        counts, clist, elist, list_w, rays8, cb, woop, tile, any_hit, out_t,
-        out_i, ctr);
+    intersect_kernel<COUNT><<<n_tiles, threads, 0, (cudaStream_t)stream>>>(
+        counts, clist, elist, list_w, rays8, cb, woop, order, tile, any_hit,
+        out_t, out_i, ctr);
   return (int)cudaGetLastError();
 }
 
@@ -173,36 +227,34 @@ int launch(const int* counts, const int* clist, const float* elist,
 extern "C" int srt_intersect(const int* counts, const int* clist,
                              const float* elist, int list_w,
                              const float* rays8, const float* cb,
-                             const float* woop, int n_tiles, int tile,
-                             int any_hit, float* out_t, int* out_i,
-                             void* stream) {
-  return launch<false, false>(counts, clist, elist, list_w, rays8, cb, woop,
-                              n_tiles, tile, any_hit, out_t, out_i, nullptr,
-                              stream);
+                             const float* woop, const int* order,
+                             int n_tiles, int tile, int threads, int any_hit,
+                             float* out_t, int* out_i, void* stream) {
+  return launch<false>(counts, clist, elist, list_w, rays8, cb, woop, order,
+                       n_tiles, tile, threads, any_hit, out_t, out_i, nullptr,
+                       stream);
 }
 
 extern "C" int srt_intersect_stream(const int* counts, const int* clist,
                                     const float* elist, int list_w,
                                     const float* rays8, const float* cb,
-                                    const float* woop, int n_tiles, int tile,
+                                    const float* woop, const int* order,
+                                    int n_tiles, int tile, int threads,
                                     int any_hit, float* out_t, int* out_i,
                                     void* stream) {
-  return launch<true, false>(counts, clist, elist, list_w, rays8, cb, woop,
-                             n_tiles, tile, any_hit, out_t, out_i, nullptr,
-                             stream);
+  return launch<false>(counts, clist, elist, list_w, rays8, cb, woop, order,
+                       n_tiles, tile, threads, any_hit, out_t, out_i, nullptr,
+                       stream);
 }
 
 extern "C" int srt_intersect_count(const int* counts, const int* clist,
                                    const float* elist, int list_w,
                                    const float* rays8, const float* cb,
-                                   const float* woop, int n_tiles, int tile,
+                                   const float* woop, const int* order,
+                                   int n_tiles, int tile, int threads,
                                    int any_hit, float* out_t, int* out_i,
-                                   int streamed, int* ctr, void* stream) {
-  if (streamed)
-    return launch<true, true>(counts, clist, elist, list_w, rays8, cb, woop,
-                              n_tiles, tile, any_hit, out_t, out_i, ctr,
-                              stream);
-  return launch<false, true>(counts, clist, elist, list_w, rays8, cb, woop,
-                             n_tiles, tile, any_hit, out_t, out_i, ctr,
-                             stream);
+                                   int* ctr, void* stream) {
+  return launch<true>(counts, clist, elist, list_w, rays8, cb, woop, order,
+                      n_tiles, tile, threads, any_hit, out_t, out_i, ctr,
+                      stream);
 }

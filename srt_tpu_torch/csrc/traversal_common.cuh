@@ -47,16 +47,15 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ rays8,
   return Ray{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
 }
 
-// Slab test, entry bound max(t_near, 0) (not exit-if-inside: a box entered
-// from inside can still hold candidates nearer than its exit).  FMA_FORM
+// The slab interval [t_near, t_far] of a box (NaN-propagating).  FMA_FORM
 // is the pg2 cull's box*inv - o*inv, with (px, py, pz) = o*inv; otherwise
-// (box - o)*inv with (px, py, pz) = o.  *sel is +0 or positive when the
-// test passes (nmax(-0, +0) returns +0).
+// (box - o)*inv with (px, py, pz) = o.
 template <bool FMA_FORM>
-__device__ __forceinline__ bool slab(float lx, float ly, float lz, float hx,
-                                     float hy, float hz, float px, float py,
-                                     float pz, float ix, float iy, float iz,
-                                     float bound, float* sel) {
+__device__ __forceinline__ void slab_span(float lx, float ly, float lz,
+                                          float hx, float hy, float hz,
+                                          float px, float py, float pz,
+                                          float ix, float iy, float iz,
+                                          float* t_near, float* t_far) {
   float t0x, t1x, t0y, t1y, t0z, t1z;
   if (FMA_FORM) {
     t0x = lx * ix - px; t1x = hx * ix - px;
@@ -67,10 +66,21 @@ __device__ __forceinline__ bool slab(float lx, float ly, float lz, float hx,
     t0y = (ly - py) * iy; t1y = (hy - py) * iy;
     t0z = (lz - pz) * iz; t1z = (hz - pz) * iz;
   }
-  const float t_near =
-      nmax(nmax(nmin(t0x, t1x), nmin(t0y, t1y)), nmin(t0z, t1z));
-  const float t_far =
-      nmin(nmin(nmax(t0x, t1x), nmax(t0y, t1y)), nmax(t0z, t1z));
+  *t_near = nmax(nmax(nmin(t0x, t1x), nmin(t0y, t1y)), nmin(t0z, t1z));
+  *t_far = nmin(nmin(nmax(t0x, t1x), nmax(t0y, t1y)), nmax(t0z, t1z));
+}
+
+// Slab test, entry bound max(t_near, 0) (not exit-if-inside: a box entered
+// from inside can still hold candidates nearer than its exit).  *sel is +0
+// or positive when the test passes (nmax(-0, +0) returns +0).
+template <bool FMA_FORM>
+__device__ __forceinline__ bool slab(float lx, float ly, float lz, float hx,
+                                     float hy, float hz, float px, float py,
+                                     float pz, float ix, float iy, float iz,
+                                     float bound, float* sel) {
+  float t_near, t_far;
+  slab_span<FMA_FORM>(lx, ly, lz, hx, hy, hz, px, py, pz, ix, iy, iz,
+                      &t_near, &t_far);
   *sel = nmax(t_near, 0.f);
   return (t_near <= t_far) && (t_far >= 0.f) && (*sel < bound);
 }
@@ -123,17 +133,7 @@ __device__ __forceinline__ bool woop_eval(const float* __restrict__ w, int l,
   return woop_test<NESTED>(q, r, t_out);
 }
 
-// Stage one cluster's 13 Woop rows ([16, 128] block, row-major) into
-// shared memory; callers synchronise around it.
-__device__ __forceinline__ void stage_cluster(float* __restrict__ w_sh,
-                                              const float* __restrict__ woop,
-                                              int c) {
-  const float* src = woop + (size_t)c * WOOP_STRIDE;
-  for (int i = threadIdx.x; i < WOOP_ROWS * CLUSTER; i += blockDim.x)
-    w_sh[i] = src[i];
-}
-
-// The walks' bulk-copy stage (B2s: two buffers; B4/B4s: a ring): shared-
+// The walks' bulk-copy stage (B2/B2s and B4/B4s: a ring): shared-
 // memory buffers of one cluster's 13 used Woop rows (13 x 128 x 4 = 6,656
 // bytes, contiguous and 16-byte aligned in the table), each filled by one
 // 1-D bulk copy (cp.async.bulk, the Hopper form of pltpu.make_async_copy)

@@ -42,15 +42,15 @@ NVCC_FLAGS = GENCODE + (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
-_WALK_B2 = [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P]
+_WALK_B2 = [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P]
 _WALK_B4 = [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P]
 # C entry points: name -> argument types (the trailing stream included).
 SIGNATURES = {
     "srt_cull": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
     "srt_intersect": _WALK_B2 + [_P],
     "srt_intersect_stream": _WALK_B2 + [_P],
-    "srt_intersect_count": _WALK_B2 + [_I, _P, _P],
-    "srt_cull_pg2": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "srt_intersect_count": _WALK_B2 + [_P, _P],
+    "srt_cull_pg2": [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "srt_pgwalk2": _WALK_B4 + [_P],
     "srt_pgwalk2_stream": _WALK_B4 + [_P],
     "srt_threefry": [_P, _P, _I, _U, _I, _U, _I, _P, _P],

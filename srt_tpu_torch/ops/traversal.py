@@ -13,8 +13,10 @@ render path:
   unit-triangle evaluation of every admitted cluster;
 * the **per-group walk "pg2"** (later bounces, shadow rays): ``cull_pg2``
   (B3) ORs per-ray cluster occupancy over groups of G rays into 16-bit
-  words per super, listed in ascending super index; ``pgwalk2`` (B4)
-  evaluates exactly those clusters for the group's rays.
+  words per super, listed in ascending super index (its kernel tests each
+  super's box first and skips the clusters of supers no ray of a warp
+  enters, with the same result); ``pgwalk2`` (B4) evaluates exactly those
+  clusters for the group's rays.
 
 Two more walks are selectable per bounce (``walks="binned"`` / ``"pg"``):
 
@@ -30,12 +32,11 @@ Two more walks are selectable per bounce (``walks="binned"`` / ``"pg"``):
 
 Models above ``STREAM_THRESHOLD_CLUSTERS`` clusters take the streamed
 variants of the walks (B2s ``intersect_stream``, B4s ``pgwalk2_stream``):
-the same contract on a Woop table padded to whole supers.  B2s copies
-each evaluated cluster's Woop rows asynchronously into a double-buffered
-shared-memory stage while the previous cluster is evaluated; B4 and B4s
-run one kernel, which keeps its copies two clusters ahead in both
-modes.  ``intersect_count`` (B2c) is the tiled
-walk with per-tile counters (supers processed, clusters evaluated).
+the same contract on a Woop table padded to whole supers.  B2 and B2s
+run one kernel, as B4 and B4s do; each copies the clusters it evaluates
+asynchronously into a ring of shared-memory buffers ahead of the
+evaluation in both modes.  ``intersect_count`` (B2c) is the tiled walk
+with per-tile counters (supers processed, clusters evaluated).
 
 Each wrapper runs its hand-written CUDA kernel (``srt_tpu_torch/csrc``) on
 CUDA tensors and its plain version on CPU tensors.  ``plain=True`` forces
@@ -355,14 +356,47 @@ def intersect_plain(counts, clist, elist, rays8, cb, woop, tile: int,
     return out + (ctr,) if count else out
 
 
+# B2/B2s/B2c launch shape (``csrc/intersect.cu``): up to INTERSECT_LANES
+# threads per ray, at most 1024 a block, and no more than the launch needs
+# to reach about INTERSECT_FILL threads per SM: many tiles keep one lane
+# per ray, few tiles (config8's primaries, the pair tiles of late bounces)
+# take more.  Chosen with sweep_cull_walk.py on the headline, config8 and
+# binned frames' own calls.
+INTERSECT_LANES = 4
+INTERSECT_FILL = 4 * 2048
+# Which tiled walks launch their tiles longest list first (an argsort of
+# the counts), so that the heaviest tiles do not start last and hold the
+# end of the launch: "streamed" (B2s, and B2c with ``stream``), "always"
+# or "never".  The large models the streamed walk serves give tiles lists
+# of very different lengths (config8's primaries: 13 clusters a tile on
+# average, 100 at most); on the resident walk's launches the argsort
+# costs more than it saves.
+INTERSECT_LONGEST_FIRST = "streamed"
+
+
+def intersect_threads(tile: int, n_rays: int, sms: int) -> int:
+    """Threads per block of a B2/B2s/B2c launch of ``n_rays`` rays at
+    ``tile`` rays per tile on a card of ``sms`` SMs: L lanes per ray, L at
+    most INTERSECT_LANES and 1024 // tile, and at most what brings the
+    launch to sms * INTERSECT_FILL threads (at least 1)."""
+    fill = sms * INTERSECT_FILL // max(1, n_rays)
+    return tile * max(1, min(INTERSECT_LANES, 1024 // tile, fill))
+
+
 def _intersect_launch(name, counts, clist, elist, rays8, cb, woop, tile,
-                      any_hit, *extra):
+                      any_hit, stream, *extra):
     _check_tile(tile)
     npad = rays8.shape[0]
     out_t = torch.empty((npad, 1), dtype=torch.float32, device=rays8.device)
     out_i = torch.empty((npad, 1), dtype=torch.int32, device=rays8.device)
+    order = None
+    if INTERSECT_LONGEST_FIRST == "always" or (
+            stream and INTERSECT_LONGEST_FIRST == "streamed"):
+        order = torch.argsort(counts[:, 0], descending=True,
+                              stable=True).to(torch.int32)
     _launch(name, _i32(counts), _i32(clist), _f32(elist), clist.shape[1],
-            _f32(rays8), _f32(cb), _f32(woop), npad // tile, tile,
+            _f32(rays8), _f32(cb), _f32(woop), order, npad // tile, tile,
+            intersect_threads(tile, npad, _sm_count(rays8.device)),
             int(any_hit), out_t, out_i, *extra)
     return out_t, out_i
 
@@ -376,21 +410,20 @@ def intersect(counts, clist, elist, rays8, cb, woop, tile: int,
         return intersect_plain(counts, clist, elist, rays8, cb, woop, tile,
                                any_hit)
     return _intersect_launch("intersect", counts, clist, elist, rays8, cb,
-                             woop, tile, any_hit)
+                             woop, tile, any_hit, False)
 
 
 def intersect_stream(counts, clist, elist, rays8, cb, woop, tile: int,
                      any_hit: bool = False, plain: bool = False):
     """B2s (replaces ``_intersect_kernel`` with ``stream=True``,
-    traversal_pallas.py:1061): B2's contract, with each admitted
-    cluster's Woop rows copied asynchronously into shared memory.  woop
+    traversal_pallas.py:1061): B2's contract and kernel on a Woop table
     [C, 16, 128] with C padded to whole supers (``stream_table``)."""
     _check_stream_table(woop)
     if plain or _on_cpu(rays8):
         return intersect_plain(counts, clist, elist, rays8, cb, woop, tile,
                                any_hit)
     return _intersect_launch("intersect_stream", counts, clist, elist, rays8,
-                             cb, woop, tile, any_hit)
+                             cb, woop, tile, any_hit, True)
 
 
 def intersect_count(counts, clist, elist, rays8, cb, woop, tile: int,
@@ -409,7 +442,7 @@ def intersect_count(counts, clist, elist, rays8, cb, woop, tile: int,
     ctr = torch.empty((rays8.shape[0] // tile, 2), dtype=torch.int32,
                       device=rays8.device)
     out = _intersect_launch("intersect_count", counts, clist, elist, rays8,
-                            cb, woop, tile, any_hit, int(stream), ctr)
+                            cb, woop, tile, any_hit, stream, ctr)
     return out + (ctr,)
 
 
@@ -456,22 +489,50 @@ def cull_pg2_plain(rays8, cb8, s_count: int, group: int):
     return clist, bits_out, counts
 
 
-def cull_pg2(rays8, cb8, s_count: int, group: int, plain: bool = False):
-    """B3 (replaces ``_cull_pg2_kernel``, traversal_pallas.py:527)."""
+def super_bounds(cb8, s_count: int):
+    """Each super's box from the per-cluster boxes cb8 [8, >= 16*S]: the
+    exact min/max of its real clusters, NaN padding boxes excluded through
+    +/-BIG identities: [8, S] (rows min xyz, max xyz, zero pad), as
+    ``model_tables`` builds ``sbounds``."""
+    box = cb8[:6, :s_count * SUPER].reshape(6, s_count, SUPER)
+    nan = torch.isnan(box)
+    lo = torch.where(nan[:3], BIG, box[:3]).amin(-1)
+    hi = torch.where(nan[3:], -BIG, box[3:]).amax(-1)
+    return torch.cat([lo, hi, torch.zeros_like(lo[:2])]).contiguous()
+
+
+# Where B3 reads the cluster boxes: "shared" stages them in shared memory
+# per chunk of supers; "global" reads an array-of-structures copy of cb8
+# from device memory.  Chosen with sweep_cull_walk.py.
+CULL_PG2_BOXES = "shared"
+
+
+def cull_pg2(rays8, cb8, s_count: int, group: int, sbounds=None,
+             plain: bool = False):
+    """B3 (replaces ``_cull_pg2_kernel``, traversal_pallas.py:527).
+    ``sbounds`` [8, S]: the supers' boxes, which the kernel tests before
+    their clusters; they must bound every real cluster box of cb8
+    (``model_tables``'s do); None derives them (``super_bounds``)."""
     _check_group(group, rays8.shape[0])
     if plain or _on_cpu(rays8):
         return cull_pg2_plain(rays8, cb8, s_count, group)
     if cb8.shape[1] < s_count * SUPER:
         raise ValueError(f"cb8 has {cb8.shape[1]} clusters, need "
                          f"{s_count * SUPER}")
+    if sbounds is None:
+        sbounds = super_bounds(cb8, s_count)
+    if tuple(sbounds.shape) != (8, s_count):
+        raise ValueError(f"sbounds has shape {tuple(sbounds.shape)}, need "
+                         f"(8, {s_count})")
     ng = rays8.shape[0] // group
     dev = rays8.device
     clist = torch.empty((ng, s_count), dtype=torch.int32, device=dev)
     bits = torch.empty((ng, s_count), dtype=torch.int32, device=dev)
     counts = torch.empty((ng, 1), dtype=torch.int32, device=dev)
     cb8 = _f32(cb8)
-    _launch("cull_pg2", _f32(rays8), cb8, cb8.shape[1], rays8.shape[0],
-            s_count, group, clist, bits, counts)
+    box8 = cb8.T.contiguous() if CULL_PG2_BOXES == "global" else None
+    _launch("cull_pg2", _f32(rays8), cb8, cb8.shape[1], box8, _f32(sbounds),
+            rays8.shape[0], s_count, group, clist, bits, counts)
     return clist, bits, counts
 
 
@@ -587,9 +648,8 @@ def _pgwalk2_launch(name, clist, bits, counts, rays8, woop, group, any_hit):
     npad = rays8.shape[0]
     dev = rays8.device
     n_groups = npad // group
-    threads, parts = pgwalk2_shape(
-        n_groups, clist.shape[1], group,
-        torch.cuda.get_device_properties(dev).multi_processor_count)
+    threads, parts = pgwalk2_shape(n_groups, clist.shape[1], group,
+                                   _sm_count(dev))
     keys = (torch.empty((parts, npad), dtype=torch.int64, device=dev)
             if parts > 1 else None)
     out_t = torch.empty((npad, 1), dtype=torch.float32, device=dev)
@@ -736,6 +796,10 @@ def _on_cpu(x) -> bool:
         raise ValueError(f"traversal kernels need CPU or CUDA tensors, got "
                          f"{x.device}")
     return False
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_tile(tile: int) -> None:
@@ -995,7 +1059,8 @@ def model_hit(scene, b: int, origins, dirs, t_best, tile: int = DEFAULT_TILE,
     dev = origins.device
 
     if group and s_count > 1:
-        clist, bits, counts = cull_pg2(rays8, cb8, s_count, group, plain)
+        clist, bits, counts = cull_pg2(rays8, cb8, s_count, group, sbounds,
+                                       plain)
         walk = pgwalk2_stream if stream else pgwalk2
         out_t, out_i = walk(clist, bits, counts, rays8, woop, group, any_hit,
                             plain)
