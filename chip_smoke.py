@@ -72,6 +72,13 @@ its inputs and outputs must move over 3.35 TB/s and the operations these
 inputs need over 67 TFLOP/s (FP32 outside the tensor cores; the H100 SXM
 data sheet's peaks).
 
+A kernel's time is its device time (``device_median``: calls enqueued
+back to back behind a spin kernel, so the host's dispatch is hidden);
+the wrapper time (CUDA events around one call) is printed beside it.
+The two agree on large launches; on launches of a few thousand rays the
+wrapper time is the host's dispatch.  Plain versions are timed around
+one call.
+
 ``--profile PATH`` also writes ``torch.profiler`` tables of one more
 frame of each render (headline, config8, binned, pg) to PATH (the source
 of PERF.md section 5).
@@ -189,6 +196,73 @@ def timed_median(fn, reps=10):
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2], out
+
+
+_SPIN_CYCLES_PER_MS = []
+
+
+def spin_cycles_per_ms():
+    """Clock cycles per ms of ``torch.cuda._sleep`` on this card, timed
+    once."""
+    import torch
+    if not _SPIN_CYCLES_PER_MS:
+        cycles = 20_000_000
+        torch.cuda._sleep(cycles // 10)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(cycles)
+        b.record()
+        torch.cuda.synchronize()
+        _SPIN_CYCLES_PER_MS.append(cycles / a.elapsed_time(b))
+    return _SPIN_CYCLES_PER_MS[0]
+
+
+def device_median(fn, reps=5):
+    """Median device time (ms) of one ``fn()`` call: the kernels of n calls
+    run back to back between two CUDA events, enqueued behind a spin
+    kernel that lasts until the host has enqueued them all, so the events
+    time the kernels and not the host's dispatch (which CUDA events
+    around one small call measure instead).  n brings the calls to about
+    20 ms.  Returns (ms, n, queued): ``queued`` is False if the spin ended
+    before the host had enqueued every call even after three longer
+    spins, and the time then holds host gaps."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) * 1e3
+    n = max(3, min(50, int(20.0 / call_ms)))
+    spin_ms = 2.0 * n * call_ms + 2.0
+    times = []
+    queued = True
+    for _ in range(reps):
+        for attempt in range(4):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(int(spin_ms * spin_cycles_per_ms()))
+            a.record()
+            for _ in range(n):
+                fn()
+            b.record()
+            covered = not a.query()
+            torch.cuda.synchronize()
+            if covered:
+                break
+            spin_ms *= 2.0
+        queued = queued and covered
+        times.append(a.elapsed_time(b) / n)
+    times.sort()
+    return times[len(times) // 2], n, queued
+
+
+def device_note(n, queued):
+    """How a ``device_median`` time was taken, for a printed line."""
+    return (f"device, {n} back to back" if queued
+            else f"{n} back to back, host-bound: holds host gaps")
 
 
 def card_line():
@@ -405,14 +479,16 @@ class Cases:
         fn = getattr(kernel_module(name), name)
         bound = inspect.signature(fn).bind(*args, **kw)
         bound.apply_defaults()
-        k_ms, k_out = timed_median(lambda: fn(*args, **kw))
+        w_ms, k_out = timed_median(lambda: fn(*args, **kw))
+        k_ms, n, queued = device_median(lambda: fn(*args, **kw))
         p_ms, p_out = timed_median(lambda: fn(*args, **kw, plain=True))
         err = compare(name, case, k_out, p_out)
         b_ms, b_by, work = bound_of(name, dict(bound.arguments), k_out)
         self.results[name]["cases"].append(dict(
-            case=case, ms=k_ms, plain_ms=p_ms, max_abs_err=err,
-            bound_ms=b_ms, bound_by=b_by))
-        print(f"[{tag}] {name:16s} {case:40s} kernel {k_ms:9.3f} ms  plain "
+            case=case, ms=k_ms, wrapper_ms=w_ms, plain_ms=p_ms,
+            max_abs_err=err, bound_ms=b_ms, bound_by=b_by))
+        print(f"[{tag}] {name:16s} {case:40s} kernel {k_ms:9.4f} ms "
+              f"({device_note(n, queued)}; wrapper {w_ms:.4f} ms)  plain "
               f"{p_ms:9.3f} ms  bound {b_ms:.5f} ms ({b_by}, "
               f"{100 * b_ms / k_ms:.2f}% reached)  equal (max_abs_err "
               f"{err}){f'  [{work}]' if work else ''}  [{self.card}]",
@@ -455,14 +531,14 @@ def phase_kernels(scene, cases):
                   bounce8, cb8, s_count, group, sbounds)
     cases.run(3, "cull_pg2", "axis-parallel warps G=32",
               axis_rays(bounce8, cb8), cb8, s_count, 32, sbounds)
-    hits = int((tr.pgwalk2(*tr.cull_pg2(bounce8, cb8, s_count, 32), bounce8,
-                           woop, 32)[1] >= 0).sum())
+    hits = int((tr.pgwalk2(*tr.cull_pg2(bounce8, cb8, s_count, 32, sbounds),
+                           bounce8, woop, 32)[1] >= 0).sum())
     check(hits > n // 4, f"only {hits} of {n} bounce rays hit the sphere")
     pgwalk2_split_cases(3, "pgwalk2", "", bounce8, shadow8, cb8, s_count,
-                        woop, cases)
+                        sbounds, woop, cases)
     for group in (8, 1024):
         rays8 = bounce8[:FEW_RAYS * 16]
-        pg = tr.cull_pg2(rays8, cb8, s_count, group)
+        pg = tr.cull_pg2(rays8, cb8, s_count, group, sbounds)
         cases.run(3, "pgwalk2", f"{rays8.shape[0]} bounce rays G={group} "
                   f"closest-hit P={pgwalk2_split(rays8, pg[0], group)[2]}",
                   *pg, rays8, woop, group)
@@ -540,7 +616,7 @@ def few_tile_cases(tag, name, scene, woop, cases):
 
 
 def pgwalk2_split_cases(tag, name, label, bounce8, shadow8, cb8, s_count,
-                        woop, cases):
+                        sbounds, woop, cases):
     """B4 or B4s on FEW_RAYS bounce rays and the same rays as shadow
     segments at G = 32: few groups, so each group's list is split over
     P > 1 blocks."""
@@ -548,7 +624,7 @@ def pgwalk2_split_cases(tag, name, label, bounce8, shadow8, cb8, s_count,
     for any_hit, rays8 in ((False, bounce8[:FEW_RAYS]),
                            (True, shadow8[:FEW_RAYS])):
         kind = "any" if any_hit else "closest"
-        pg = tr.cull_pg2(rays8, cb8, s_count, 32)
+        pg = tr.cull_pg2(rays8, cb8, s_count, 32, sbounds)
         parts = pgwalk2_split(rays8, pg[0], 32)[2]
         check(parts > 1, f"{name} on {FEW_RAYS} rays: P={parts}, no split")
         cases.run(tag, name, f"{label}{FEW_RAYS} bounce rays G=32 {kind}-hit "
@@ -567,13 +643,15 @@ def exact_tie_cases(scene, bounce8, cases):
     import torch
 
     from srt_tpu_torch.ops import traversal as tr
-    _, _, _, cb8, s_count, _ = tr.model_tables(scene, 0)
+    _, _, sbounds, cb8, s_count, _ = tr.model_tables(scene, 0)
     woop = tr.stream_table(scene, 0)
     few = bounce8[:FEW_RAYS]
-    many = LIST_STAGED // int(tr.cull_pg2(few, cb8, s_count, 32)[2].max()) + 1
+    many = LIST_STAGED // int(tr.cull_pg2(few, cb8, s_count, 32,
+                                          sbounds)[2].max()) + 1
     for copies, rays8 in ((2, few), (2, bounce8), (many, few)):
         pg = tr.cull_pg2(rays8, torch.cat([cb8] * copies, 1),
-                         copies * s_count, 32)
+                         copies * s_count, 32,
+                         torch.cat([sbounds] * copies, 1))
         longest = int(pg[2].max())
         check(copies == 2 or longest > LIST_STAGED,
               f"sphere x{copies}: longest list {longest} entries, not above "
@@ -582,8 +660,8 @@ def exact_tie_cases(scene, bounce8, cases):
         t, i = cases.run(3, "pgwalk2", f"sphere x{copies} {rays8.shape[0]} "
                          f"rays G=32 P={parts} ({longest} entries)", *pg,
                          rays8, torch.cat([woop] * copies), 32)
-        ref = tr.pgwalk2(*tr.cull_pg2(rays8, cb8, s_count, 32), rays8, woop,
-                         32)
+        ref = tr.pgwalk2(*tr.cull_pg2(rays8, cb8, s_count, 32, sbounds),
+                         rays8, woop, 32)
         check(torch.equal(t, ref[0]) and torch.equal(i, ref[1]),
               f"sphere x{copies}: exact ties did not go to the first copy")
         check(bool((i >= 0).any()), f"sphere x{copies}: no hits")
@@ -621,8 +699,9 @@ def recorded_launches():
 def replay_frame(tag, plan, cases, key):
     """Render one untimed frame recording every kernel launch, replay each
     through its plain version, and time each launch again on its recorded
-    inputs (median of 5) beside its bound; prints the per-frame sums by
-    kernel and returns the set of kernels launched."""
+    inputs (device time, ``device_median`` of 3, and wrapper time, CUDA
+    events around one call, median of 5) beside its bound; prints the
+    per-frame sums by kernel and returns the set of kernels launched."""
     import torch
     with recorded_launches() as calls:
         plan.render(key)
@@ -662,19 +741,22 @@ def replay_frame(tag, plan, cases, key):
         p_ms = (time.perf_counter() - t0) * 1e3
         err = compare(name, case, k_out, p_out)
         cases.replayed(name, case, p_ms, err)
-        k_ms = timed_median(lambda: fn(**args), reps=5)[0]
+        w_ms = timed_median(lambda: fn(**args), reps=5)[0]
+        k_ms, n, queued = device_median(lambda: fn(**args), reps=3)
         b_ms, b_by, work = bound_of(name, args, k_out)
-        acc = per_frame.setdefault(name, [0, 0.0, 0.0, 0.0])
-        for q, v in enumerate((1, k_ms, b_ms, p_ms)):
+        acc = per_frame.setdefault(name, [0, 0.0, 0.0, 0.0, 0.0])
+        for q, v in enumerate((1, k_ms, w_ms, b_ms, p_ms)):
             acc[q] += v
-        print(f"[{tag}] {name:16s} {case:56s} kernel {k_ms:.4f} ms, bound "
+        print(f"[{tag}] {name:16s} {case:56s} kernel {k_ms:.4f} ms "
+              f"({device_note(n, queued)}; wrapper {w_ms:.4f} ms), bound "
               f"{b_ms:.5f} ms ({b_by}); equals plain (plain {p_ms:.1f} ms, "
               f"max_abs_err {err}){f'; {work}' if work else ''}  "
               f"[{cases.card}]", flush=True)
-    for name, (n, k_ms, b_ms, p_ms) in per_frame.items():
+    for name, (n, k_ms, w_ms, b_ms, p_ms) in per_frame.items():
         print(f"[{tag}] per frame {name:16s} {n:2d} launches, kernel "
-              f"{k_ms:.4f} ms, bound {b_ms:.5f} ms ({100 * b_ms / k_ms:.2f}% "
-              f"reached), plain {p_ms:.1f} ms  [{cases.card}]", flush=True)
+              f"{k_ms:.4f} ms (device), bound {b_ms:.5f} ms "
+              f"({100 * b_ms / k_ms:.2f}% reached), wrapper {w_ms:.4f} ms, "
+              f"plain {p_ms:.1f} ms  [{cases.card}]", flush=True)
     return set(per_frame)
 
 
@@ -845,7 +927,7 @@ def stream_cases(scene, cases):
                       f"config8 bounce G={group} {kind}-hit", *pg, rays8,
                       woop_s, group, any_hit)
     pgwalk2_split_cases("6a", "pgwalk2_stream", "config8 ", bounce8, shadow8,
-                        cb8, s_count, woop_s, cases)
+                        cb8, s_count, sbounds, woop_s, cases)
     cases.run("6a", "intersect_count",
               "config8 primary tile 256 stream closest-hit", counts, clist,
               elist, prim8, cb, woop_s, 256, stream=True)
@@ -871,8 +953,8 @@ def resident_vs_stream(label, scene, card):
             lambda w, b2=b2: b2(tr.intersect, w),
             lambda w, b2=b2: b2(tr.intersect_stream, w))
     for group, any_hit, rays8 in ((128, False, bounce8), (32, True, shadow8)):
-        def b4(walk, w, pg=tr.cull_pg2(rays8, cb8, s_count, group), r=rays8,
-               g=group, a=any_hit):
+        def b4(walk, w, pg=tr.cull_pg2(rays8, cb8, s_count, group, sbounds),
+               r=rays8, g=group, a=any_hit):
             return walk(*pg, r, w, g, a)
         pairs[f"B4 bounce G={group} {'any' if any_hit else 'closest'}"] = (
             lambda w, b4=b4: b4(tr.pgwalk2, w),
@@ -1166,9 +1248,9 @@ def main(argv=None) -> int:
     del scene8
     phase_binned(scene, cases, args.profile)
 
-    # Each kernel's first case: ms, plain ms and bound of one call.  No
-    # single PyTorch call computes a cull, a walk or the threefry lattice,
-    # so library_ms is null for every kernel.
+    # Each kernel's first case: device ms, plain ms and bound of one call.
+    # No single PyTorch call computes a cull, a walk or the threefry
+    # lattice, so library_ms is null for every kernel.
     kernels = []
     for k, (_, src, replaces) in KERNELS.items():
         rec = cases.results[k]

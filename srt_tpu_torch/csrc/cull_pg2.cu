@@ -36,8 +36,8 @@
 //    the end, so each store instruction covers consecutive addresses.
 // 4. Six scalar loads per box: now the chunk's super and cluster boxes
 //    are staged in shared memory as two float4 each and read as
-//    broadcasts.  box8 != nullptr reads the cluster boxes from that global
-//    array of the same layout instead (the comparison of the two ways).
+//    broadcasts.  (An array-of-structures copy read from device memory
+//    instead was slower on every frame of the main path.)
 //
 // Blocks whose rays are all dead only zero-fill their rows.
 #include "traversal_common.cuh"
@@ -49,12 +49,12 @@ using namespace srt;
 constexpr int CHUNK = 64;    // supers staged in shared memory at a time
 constexpr int BLOCK = 256;   // threads per block when G <= BLOCK, else G
 
-// Dynamic shared memory of a launch: cluster boxes (staged mode), super
-// boxes, warp liveness, group counts, and one 16-bit word per (slot,
-// super) of the chunk, a slot being a group (G <= 32) or a warp.
-size_t smem_bytes(int threads, int group, bool staged) {
+// Dynamic shared memory of a launch: cluster boxes, super boxes, warp
+// liveness, group counts, and one 16-bit word per (slot, super) of the
+// chunk, a slot being a group (G <= 32) or a warp.
+size_t smem_bytes(int threads, int group) {
   const int seg = group < 32 ? group : 32;
-  return (staged ? (size_t)CHUNK * SUPER * 2 * sizeof(float4) : 0) +
+  return (size_t)CHUNK * SUPER * 2 * sizeof(float4) +
          CHUNK * 2 * sizeof(float4) + 32 * sizeof(int) +
          BLOCK * sizeof(int) +
          (size_t)(threads / seg) * CHUNK * sizeof(unsigned short);
@@ -75,17 +75,16 @@ __device__ __forceinline__ bool may_enter(const float4& a, const float4& b,
 
 // MAX_THREADS: the launch's block size bound, BLOCK or 1024 (G > BLOCK);
 // ptxas then keeps the registers that many threads may use.
-template <bool STAGED, int MAX_THREADS>
+template <int MAX_THREADS>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
     cull_pg2_kernel(const float* __restrict__ rays8,
                     const float* __restrict__ cb8, int stride,
-                    const float4* __restrict__ box8,
                     const float* __restrict__ sbounds, int n_rays, int S,
                     int group, int* __restrict__ clist,
                     int* __restrict__ bits, int* __restrict__ counts) {
   extern __shared__ float4 smem[];
   float4* cbox = smem;                                  // [CHUNK*16][2]
-  float4* sbox = cbox + (STAGED ? CHUNK * SUPER * 2 : 0);  // [CHUNK][2]
+  float4* sbox = cbox + CHUNK * SUPER * 2;               // [CHUNK][2]
   int* wlive = reinterpret_cast<int*>(sbox + CHUNK * 2);   // [32]
   int* gcnt = wlive + 32;                                  // [BLOCK]
   unsigned short* words =
@@ -130,14 +129,13 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
 
   for (int s0 = 0; s0 < S; s0 += CHUNK) {
     const int ns = min(CHUNK, S - s0);
-    if (STAGED)
-      for (int i = tid; i < ns * SUPER; i += blockDim.x) {
-        const int c = s0 * SUPER + i;
-        cbox[2 * i] = make_float4(cb8[c], cb8[stride + c],
-                                  cb8[2 * stride + c], cb8[3 * stride + c]);
-        cbox[2 * i + 1] =
-            make_float4(cb8[4 * stride + c], cb8[5 * stride + c], 0.f, 0.f);
-      }
+    for (int i = tid; i < ns * SUPER; i += blockDim.x) {
+      const int c = s0 * SUPER + i;
+      cbox[2 * i] = make_float4(cb8[c], cb8[stride + c], cb8[2 * stride + c],
+                                cb8[3 * stride + c]);
+      cbox[2 * i + 1] =
+          make_float4(cb8[4 * stride + c], cb8[5 * stride + c], 0.f, 0.f);
+    }
     for (int i = tid; i < ns; i += blockDim.x) {
       const int s = s0 + i;
       sbox[2 * i] = make_float4(sbounds[s], sbounds[S + s],
@@ -147,7 +145,6 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     }
     __syncthreads();
     if (warp_live) {  // warp-uniform
-      const float4* boxes = STAGED ? cbox : box8 + (size_t)s0 * SUPER * 2;
       // The chunk's super pre-tests first (independent tests, one bit
       // each), OR-ed over the warp; then the cluster tests of the supers
       // some lane may enter.
@@ -166,7 +163,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
       for (int j = 0; j < ns; ++j) {
         unsigned word = 0;
         if ((todo >> j) & 1) {
-          const float4* bj = boxes + j * SUPER * 2;
+          const float4* bj = cbox + j * SUPER * 2;
 #pragma unroll 8
           for (int k = 0; k < SUPER; ++k) {
             const float4 a = bj[2 * k], b = bj[2 * k + 1];
@@ -226,9 +223,9 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
 }  // namespace
 
 extern "C" int srt_cull_pg2(const float* rays8, const float* cb8, int stride,
-                            const float* box8, const float* sbounds,
-                            int n_rays, int S, int group, int* clist,
-                            int* bits, int* counts, void* stream) {
+                            const float* sbounds, int n_rays, int S,
+                            int group, int* clist, int* bits, int* counts,
+                            void* stream) {
   if (group < 1 || group > 1024 || (group & (group - 1)))
     return (int)cudaErrorInvalidValue;
   const int block = group > BLOCK ? group : BLOCK;
@@ -236,20 +233,15 @@ extern "C" int srt_cull_pg2(const float* rays8, const float* cb8, int stride,
   const int n_groups = n_rays / group;
   const int grid = (n_groups + gpb - 1) / gpb;
   if (grid <= 0 || S <= 0) return 0;
-  const bool staged = box8 == nullptr;
   const auto kernel =
-      block > BLOCK
-          ? (staged ? cull_pg2_kernel<true, 1024> : cull_pg2_kernel<false, 1024>)
-          : (staged ? cull_pg2_kernel<true, BLOCK>
-                    : cull_pg2_kernel<false, BLOCK>);
-  const size_t smem = smem_bytes(block, group, staged);
+      block > BLOCK ? cull_pg2_kernel<1024> : cull_pg2_kernel<BLOCK>;
+  const size_t smem = smem_bytes(block, group);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      rays8, cb8, stride, reinterpret_cast<const float4*>(box8), sbounds,
-      n_rays, S, group, clist, bits, counts);
+      rays8, cb8, stride, sbounds, n_rays, S, group, clist, bits, counts);
   return (int)cudaGetLastError();
 }

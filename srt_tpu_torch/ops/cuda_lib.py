@@ -50,7 +50,7 @@ SIGNATURES = {
     "srt_intersect": _WALK_B2 + [_P],
     "srt_intersect_stream": _WALK_B2 + [_P],
     "srt_intersect_count": _WALK_B2 + [_P, _P],
-    "srt_cull_pg2": [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "srt_cull_pg2": [_P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P],
     "srt_pgwalk2": _WALK_B4 + [_P],
     "srt_pgwalk2_stream": _WALK_B4 + [_P],
     "srt_threefry": [_P, _P, _I, _U, _I, _U, _I, _P, _P],

@@ -359,19 +359,12 @@ def intersect_plain(counts, clist, elist, rays8, cb, woop, tile: int,
 # B2/B2s/B2c launch shape (``csrc/intersect.cu``): up to INTERSECT_LANES
 # threads per ray, at most 1024 a block, and no more than the launch needs
 # to reach about INTERSECT_FILL threads per SM: many tiles keep one lane
-# per ray, few tiles (config8's primaries, the pair tiles of late bounces)
-# take more.  Chosen with sweep_cull_walk.py on the headline, config8 and
-# binned frames' own calls.
+# per ray (the binned frame's millions of pair rays), a million rays take
+# two (the headline's primaries), few tiles (config8's primaries, the
+# pair tiles of late bounces) take more.  Chosen with sweep_cull_walk.py
+# on the headline, config8 and binned frames' own calls.
 INTERSECT_LANES = 4
-INTERSECT_FILL = 4 * 2048
-# Which tiled walks launch their tiles longest list first (an argsort of
-# the counts), so that the heaviest tiles do not start last and hold the
-# end of the launch: "streamed" (B2s, and B2c with ``stream``), "always"
-# or "never".  The large models the streamed walk serves give tiles lists
-# of very different lengths (config8's primaries: 13 clusters a tile on
-# average, 100 at most); on the resident walk's launches the argsort
-# costs more than it saves.
-INTERSECT_LONGEST_FIRST = "streamed"
+INTERSECT_FILL = 8 * 2048
 
 
 def intersect_threads(tile: int, n_rays: int, sms: int) -> int:
@@ -385,13 +378,19 @@ def intersect_threads(tile: int, n_rays: int, sms: int) -> int:
 
 def _intersect_launch(name, counts, clist, elist, rays8, cb, woop, tile,
                       any_hit, stream, *extra):
+    """Launch B2/B2s/B2c.  The streamed walk (``stream``) launches its
+    tiles longest list first (an argsort of the counts), so that the
+    heaviest tiles do not start last and hold the end of the launch: the
+    large models it serves give tiles lists of very different lengths
+    (config8's primaries: 13 clusters a tile on average, 100 at most).
+    On the resident walk's launches the argsort costs more than it
+    saves."""
     _check_tile(tile)
     npad = rays8.shape[0]
     out_t = torch.empty((npad, 1), dtype=torch.float32, device=rays8.device)
     out_i = torch.empty((npad, 1), dtype=torch.int32, device=rays8.device)
     order = None
-    if INTERSECT_LONGEST_FIRST == "always" or (
-            stream and INTERSECT_LONGEST_FIRST == "streamed"):
+    if stream:
         order = torch.argsort(counts[:, 0], descending=True,
                               stable=True).to(torch.int32)
     _launch(name, _i32(counts), _i32(clist), _f32(elist), clist.shape[1],
@@ -501,37 +500,30 @@ def super_bounds(cb8, s_count: int):
     return torch.cat([lo, hi, torch.zeros_like(lo[:2])]).contiguous()
 
 
-# Where B3 reads the cluster boxes: "shared" stages them in shared memory
-# per chunk of supers; "global" reads an array-of-structures copy of cb8
-# from device memory.  Chosen with sweep_cull_walk.py.
-CULL_PG2_BOXES = "shared"
-
-
-def cull_pg2(rays8, cb8, s_count: int, group: int, sbounds=None,
+def cull_pg2(rays8, cb8, s_count: int, group: int, sbounds,
              plain: bool = False):
     """B3 (replaces ``_cull_pg2_kernel``, traversal_pallas.py:527).
-    ``sbounds`` [8, S]: the supers' boxes, which the kernel tests before
-    their clusters; they must bound every real cluster box of cb8
-    (``model_tables``'s do); None derives them (``super_bounds``)."""
+    ``sbounds`` [8, S]: the supers' boxes from the same ``model_tables``
+    call as cb8 (equal to ``super_bounds(cb8, S)``), which the kernel tests
+    before their clusters; the lists equal the plain version's only when
+    each bounds its super's real cluster boxes.  The plain version does
+    not read them."""
     _check_group(group, rays8.shape[0])
+    if tuple(sbounds.shape) != (8, s_count):
+        raise ValueError(f"sbounds has shape {tuple(sbounds.shape)}, need "
+                         f"(8, {s_count})")
     if plain or _on_cpu(rays8):
         return cull_pg2_plain(rays8, cb8, s_count, group)
     if cb8.shape[1] < s_count * SUPER:
         raise ValueError(f"cb8 has {cb8.shape[1]} clusters, need "
                          f"{s_count * SUPER}")
-    if sbounds is None:
-        sbounds = super_bounds(cb8, s_count)
-    if tuple(sbounds.shape) != (8, s_count):
-        raise ValueError(f"sbounds has shape {tuple(sbounds.shape)}, need "
-                         f"(8, {s_count})")
     ng = rays8.shape[0] // group
     dev = rays8.device
     clist = torch.empty((ng, s_count), dtype=torch.int32, device=dev)
     bits = torch.empty((ng, s_count), dtype=torch.int32, device=dev)
     counts = torch.empty((ng, 1), dtype=torch.int32, device=dev)
     cb8 = _f32(cb8)
-    box8 = cb8.T.contiguous() if CULL_PG2_BOXES == "global" else None
-    _launch("cull_pg2", _f32(rays8), cb8, cb8.shape[1], box8, _f32(sbounds),
+    _launch("cull_pg2", _f32(rays8), cb8, cb8.shape[1], _f32(sbounds),
             rays8.shape[0], s_count, group, clist, bits, counts)
     return clist, bits, counts
 

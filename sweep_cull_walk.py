@@ -1,24 +1,19 @@
 #!/usr/bin/env python3
-"""Time B3 (``srt_tpu_torch/csrc/cull_pg2.cu``) and the tiled walk B2/B2s
-(``csrc/intersect.cu``) under their launch choices on one NVIDIA GPU.
+"""Time the tiled walk B2/B2s (``srt_tpu_torch/csrc/intersect.cu``) under
+its launch shapes on one NVIDIA GPU.
 
 Usage: ``python3 sweep_cull_walk.py`` from the repository root.  It
-records every B3 and B2/B2s call of one headline frame, one config8 frame
-and one headline frame through ``walks="tiled@256,binned"``
+records every B2/B2s call of one headline frame, one config8 frame and
+one headline frame through ``walks="tiled@256,binned"``
 (``chip_smoke.py``'s scenes, cameras and walks), adds the 65,536-ray
-cases of ``chip_smoke.py`` phases 3 and 6a (B3 on bounce rays at G = 128
-and 32, B2 on headline primaries, B2s on config8 primaries), then times
-each call (CUDA events, median of 7) under each choice: where B3 reads
-its cluster boxes (``traversal.CULL_PG2_BOXES``: staged in shared memory
-or read from a global copy) and the tiled walk's lanes per ray (at most
-``traversal.INTERSECT_LANES``, fewer where the launch reaches
-``traversal.INTERSECT_FILL`` threads per SM; 1 << 30 never limits) and
-which walks launch their tiles longest list first
-(``traversal.INTERSECT_LONGEST_FIRST``: on a resident call "streamed"
-keeps the launch order and "always" sorts; on a streamed call "streamed"
-sorts and "never" does not).  Every choice's output must equal the plain
-version's.  Prints one line per call and choice, and the per-frame
-sums by choice; the choice the wrappers use is marked.
+cases of ``chip_smoke.py`` phases 3 and 6a (B2 on headline primaries,
+B2s on config8 primaries), then times each call (``chip_smoke``'s
+``device_median``: device time, median of 5) under each choice of lanes
+per ray: at most ``traversal.INTERSECT_LANES``, fewer where the launch
+reaches ``traversal.INTERSECT_FILL`` threads per SM (1 << 30 never
+limits).  Every choice's output must equal the plain version's.  Prints
+one line per call and choice, and the per-frame sums by choice; the
+choice the wrappers use is marked.
 """
 
 from __future__ import annotations
@@ -27,16 +22,10 @@ import sys
 
 import chip_smoke as cs
 
-_WALK = [dict(INTERSECT_LANES=lanes, INTERSECT_FILL=fill,
-              INTERSECT_LONGEST_FIRST=order)
-         for order in ("streamed", "always", "never")
+_WALK = [dict(INTERSECT_LANES=lanes, INTERSECT_FILL=fill)
          for lanes, fill in ((1, 1 << 30), (2, 1 << 30), (2, 4 * 2048),
                              (4, 1 << 30), (4, 4 * 2048), (4, 8 * 2048))]
-CHOICES = {
-    "cull_pg2": [dict(CULL_PG2_BOXES=b) for b in ("shared", "global")],
-    "intersect": [c for c in _WALK if c["INTERSECT_LONGEST_FIRST"] != "never"],
-    "intersect_stream": [c for c in _WALK
-                         if c["INTERSECT_LONGEST_FIRST"] != "always"]}
+CHOICES = {"intersect": _WALK, "intersect_stream": _WALK}
 
 
 def record(plan, key):
@@ -79,18 +68,14 @@ def cases(scenes):
     for sphere, name in ((cs.HEADLINE_SPHERE, "intersect"),
                          (cs.CONFIG8_SPHERE, "intersect_stream")):
         scene = scenes[sphere]
-        woop, cb, sbounds, cb8, s_count, _ = tr.model_tables(scene, 0)
+        woop, cb, sbounds, _, _, _ = tr.model_tables(scene, 0)
         if name == "intersect_stream":
             woop = tr.stream_table(scene, 0)
-        prim8, bounce8, _ = cs.walk_rays(scene)
+        prim8 = cs.walk_rays(scene)[0]
         clist, elist, counts = tr.cull(prim8, sbounds, 256)
         out.append((name, dict(counts=counts, clist=clist, elist=elist,
                                rays8=prim8, cb=cb, woop=woop, tile=256,
                                any_hit=False)))
-        for g in (128, 32):
-            out.append(("cull_pg2", dict(rays8=bounce8, cb8=cb8,
-                                         s_count=s_count, group=g,
-                                         sbounds=sbounds)))
     return out
 
 
@@ -114,14 +99,14 @@ def main() -> int:
             ref = fn(**args, plain=True)
             rays8 = args["rays8"]
             default = {knob: getattr(tr, knob) for knob in CHOICES[name][0]}
-            shape = (f"G={args['group']}" if name == "cull_pg2"
-                     else f"tile {args['tile']}")
             head = (f"{label} call {k} {name}: {rays8.shape[0]} rays "
-                    f"({int((rays8[:, 6] > 0).sum())} live), {shape}")
+                    f"({int((rays8[:, 6] > 0).sum())} live), tile "
+                    f"{args['tile']}")
             for choice in CHOICES[name]:
                 for knob, value in choice.items():
                     setattr(tr, knob, value)
-                ms, out = cs.timed_median(lambda: fn(**args), reps=7)
+                out = fn(**args)
+                ms = cs.device_median(lambda: fn(**args))[0]
                 text = ", ".join(f"{a}={v}" for a, v in choice.items())
                 cs.check(all(torch.equal(a, b) for a, b in zip(out, ref)),
                          f"{head}: {text} differs from the plain version")

@@ -60,12 +60,12 @@ def main() -> int:
                                              spp=1))
         calls[label] = record(plan, rng.key(0, dev))
         if label == "headline":
-            woop, _, _, cb8, s_count, _ = tr.model_tables(scene, 0)
+            woop, _, sbounds, cb8, s_count, _ = tr.model_tables(scene, 0)
             _, bounce8, _ = cs.walk_rays(scene)
             calls["65536-ray cases"] = [
                 ("pgwalk2", dict(zip(
                     ("clist", "bits", "counts"),
-                    tr.cull_pg2(bounce8, cb8, s_count, g)),
+                    tr.cull_pg2(bounce8, cb8, s_count, g, sbounds)),
                     rays8=bounce8, woop=woop, group=g, any_hit=False))
                 for g in (128, 32)]
     default = (tr.PGWALK2_LANES, tr.PGWALK2_FILL, tr.PGWALK2_MAX_PARTS)

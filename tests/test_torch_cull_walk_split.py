@@ -168,6 +168,22 @@ def test_two_level_cull_matches_plain_and_pallas(scenes, group, dead):
         assert bool(inf_inv.any())            # infinite reciprocals ran
 
 
+def test_cull_pg2_needs_the_tables_sbounds(scenes):
+    """B3 takes the supers' boxes from the caller (``model_tables``'s,
+    equal to ``super_bounds`` of the same cb8) and refuses a missing or
+    misshapen table before it walks, on any device."""
+    _, ps = scenes
+    _, _, sbounds, cb8, s, _ = tr.model_tables(ps, 0)
+    rays8 = cull_rays(cb8, sbounds, "live")
+    with pytest.raises(TypeError):
+        tr.cull_pg2(rays8, cb8, s, 32)
+    for bad in (sbounds[:, :-1], sbounds[:6]):
+        with pytest.raises(ValueError, match="sbounds has shape"):
+            tr.cull_pg2(rays8, cb8, s, 32, bad)
+    assert torch.equal(tr.super_bounds(torch.cat([cb8] * 2, 1), 2 * s),
+                       torch.cat([sbounds] * 2, 1))
+
+
 def test_nan_super_test_counts_as_entering():
     """A zero super bound times an infinite reciprocal gives NaN: such a
     super test counts as entering, so the warp runs the cluster tests.

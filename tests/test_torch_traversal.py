@@ -200,7 +200,7 @@ def test_cull_pg2_matches_pallas(scenes, mixed, group):
     op = operands(scenes[1], 11, mixed, False)
     ref = jax_tp._launch_cull_pg2(j(op["rays8"]), j(op["cb8_j"]),
                                   j(op["w_bp"]), TILE, True, group=group)
-    got = tr.cull_pg2(op["rays8"], op["cb8"], op["s"], group)
+    got = tr.cull_pg2(op["rays8"], op["cb8"], op["s"], group, op["sbounds"])
     assert int(got[2].sum()) > 0
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
