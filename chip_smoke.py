@@ -20,7 +20,9 @@ Phases, one line each; the last line is printed only when all pass:
    blocks), at G = 8 and G = 1024 (4,096 rays), and on the sphere's
    tables repeated (every hit an exact tie, which the first copy must
    win; twice, and often enough that lists outgrow the entries the kernel
-   stages in shared memory).  Also the counted tiled walk (B2c) there, and the threefry
+   stages in shared memory).  B1 also on partly dead tiles (every fourth
+   tile dead, half the next) and on the bounce rays at tile 128.  Also the
+   counted tiled walk (B2c) there, and the threefry
    lattice kernel at 18 slots x 1M columns (``full`` and ``rows_at``, bit
    for bit).
 4. The headline render at full size: ``make_render_plan`` on
@@ -35,7 +37,8 @@ Phases, one line each; the last line is printed only when all pass:
    image (rtol 1e-4, atol 1e-5).
 6. The config8 scene (``bench_suite.py`` config8): ``uv_sphere(360, 700,
    radius=2.0)``, 502,600 triangles in 3,927 clusters, above the stream
-   threshold, so the plan walks with the streamed kernels.  (a) B2s, B3
+   threshold, so the plan walks with the streamed kernels.  (a) B1 (246
+   supers; also partly dead tiles and bounce rays), B2s, B3
    (246 supers: four chunks of staged boxes) and B4s against their plain
    versions at 65,536 rays on its tables, B2s at tile 32 on one and eight
    tiles, and B4s on 256 rays at G = 32 (P > 1);
@@ -49,7 +52,10 @@ Phases, one line each; the last line is printed only when all pass:
    supers processed and clusters evaluated per tile.
 8. The pair-binned and mask-scan walks on the headline scene.  (a) B5,
    B6 and B7 against their plain versions at 65,536 rays (bounce rays,
-   tile 128, a third dead; primaries; shadow segments), and the pair
+   tile 128, a third dead; primaries; shadow segments), B7 on 4,096 rays
+   with five live groups (its kernels must split the few tiles' clusters
+   into more work items than tiles) and on the sphere's tables repeated
+   (exact ties: the first copy must win), and the pair
    tiles of ``binned_pairs`` through B2 against plain B2; (b) the
    headline render with ``walks="tiled@256,binned"``,
    ``walks_shadow="binned"``: one replayed frame and 10 timed frames as
@@ -63,14 +69,17 @@ Each path (the headline frames, the config8 frames, the counter run, the
 binned frames, the pg frames) is driven with the launch counts set to 0
 just before it and read just after; every kernel must be launched by its
 path.  Each replayed B4/B4s launch also prints its groups, the clusters
-its lists name and the split P its wrapper chose; each B3 launch its
+its lists name and the split P its wrapper chose; each B7 launch its
+groups with work, set bits, tile size K, lanes L, chunk and work items;
+each B1 launch its S and live rays; each B3 launch its
 groups and the super and cluster tests a two-level cull needs; each
 B2/B2s launch its tiles, the supers processed and clusters evaluated
 (B2c's counters) and its lanes per ray L.  Every kernel case also
 prints its bound: the larger of the bytes
 its inputs and outputs must move over 3.35 TB/s and the operations these
 inputs need over 67 TFLOP/s (FP32 outside the tensor cores; the H100 SXM
-data sheet's peaks).
+data sheet's peaks), or, for threefry's integer instructions, over the
+INT32 issue rate of 16.7 Tops/s.
 
 A kernel's time is its device time (``device_median``: calls enqueued
 back to back behind a spin kernel, so the host's dispatch is hidden);
@@ -136,6 +145,9 @@ CASE_RAYS, THREEFRY_COLS = 65536, 1 << 20
 # Rays of the few-group B4/B4s cases (8 groups at G = 32), and the list
 # entries B4 stages in shared memory (LIST_SH, csrc/pgwalk2.cu).
 FEW_RAYS, LIST_STAGED = 256, 256
+# The few-group B7 cases: rays (as the pg frame's deep bounces), and the
+# groups of 8 that stay live.
+FEW_GROUP_RAYS, FEW_LIVE_GROUPS = 4096, (3, 4, 100, 301, 480)
 # Outputs of each kernel that are float (compared for max_abs_err too);
 # all outputs must be equal.
 FLOAT_OUTPUTS = {"cull": (1,), "intersect": (0,), "cull_pg2": (),
@@ -149,16 +161,29 @@ FLOAT_OUTPUTS = {"cull": (1,), "intersect": (0,), "cull_pg2": (),
 # minima/maxima, 3 compares) per (ray, box); a Woop evaluation
 # (``woop_eval`` plus the walk's merge: 43 multiplies and adds, a
 # division, 8 compares, minima and sign operations) per (ray, triangle);
-# a threefry lattice point (threefry.cu: 20 rounds of add, rotate, xor,
-# 5 key injections of 3 adds, 11 more for the key schedule, the lattice
-# index and the float).  Operations count at the FP32 rate, the only
-# CUDA-core rate of the table; built with -fmad=false, no multiply-add
-# fuses, so the card issues these at most at half that rate.
+# a threefry lattice point: the integer instructions per point of the
+# built kernel's SASS (``cuobjdump -sass``, sm_90a; ``threefry_sass_ops``
+# checks the two counts below against every build): 72 in all, 70 for the
+# 20 rounds of add, rotate and xor, the key injections and schedule and
+# the lattice index (21 LOP3, 20 SHF, 18 IMAD.IADD, 9 IADD3, a VIADD and
+# an IMAD) and 2 for the float (an xor and a LEA.HI); the per-thread index
+# division is the kernel's and not counted.  Which rate each counts
+# against: the slab tests and Woop evaluations are float operations, at
+# the FP32 rate (67 TFLOP/s, the only CUDA-core rate of the data sheet;
+# built with -fmad=false, no multiply-add fuses, so the card issues them
+# at most at half that rate).  Threefry's instructions split over two
+# pipes that issue side by side: LOP3, SHF, IADD3 and LEA on the integer
+# ALU pipe (52 a point), IMAD.IADD, IMAD and VIADD on the FMA pipe (20; a
+# VIADD counted there, where it makes the bound the smaller).  Each pipe
+# takes 64 lanes per SM a clock (Hopper white paper: 64 INT32 lanes; the
+# FMA pipe's integer half), 132 SMs x 64 x 1.98 GHz = 16.7 Tops/s, and a
+# point is bound by the busier pipe, the ALU's 52.
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+PEAK_INT32_OPS_S = 132 * 64 * 1.98e9
 SLAB_OPS = 26
 WOOP_OPS = 52
-THREEFRY_OPS = 86
+THREEFRY_ALU_OPS, THREEFRY_FMA_OPS = 52, 20
 
 
 class SmokeFailure(Exception):
@@ -389,6 +414,78 @@ def pgwalk2_split(rays8, clist, group):
                                         sms))
 
 
+def ptxas_lines(log):
+    """nvcc's -Xptxas -v output, one line per kernel: its name (from the
+    mangled name: the namespace, then the name, each length-prefixed, and
+    an int or bool template argument), its registers and its spills."""
+    import re
+    out, name, spill = [], "?", ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '_ZN(\d+)(\w+)'", ln)
+        if m:  # _ZN <namespace> <name> [I Li<arg> E] E ...
+            rest = m.group(2)[int(m.group(1)):]
+            n = re.match(r"\d+", rest).group()
+            name = rest[len(n):len(n) + int(n)]
+            arg = re.match(r"IL[ib](\d+)E", rest[len(n) + int(n):])
+            name += f"<{arg.group(1)}>" if arg else ""
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "registers" in ln:
+            out.append(f"{name}: {ln.split(':', 1)[1].strip()}; {spill}")
+    return out
+
+
+def threefry_sass_ops(lib_path):
+    """(ALU-pipe, FMA-pipe) integer instructions per lattice point of the
+    built threefry kernel: its SASS (``cuobjdump -sass``) from after the
+    last key or column load to the output store, less uniform-datapath,
+    predicated, compare, move, load, store and address instructions and
+    the float subtraction; IMAD and VIADD forms count on the FMA pipe.
+    None without cuobjdump."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300).stdout
+    body = sass.split("threefry_kernel", 1)[1].split("Function :", 1)[0]
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]+);", body)
+    last_load = max(i for i, t in enumerate(ops) if "LDG" in t)
+    store = max(i for i, t in enumerate(ops) if "STG" in t)
+    skip = ("U", "@", "ISETP", "LDC", "LDG", "S2R", "STG", "EXIT", "FADD",
+            "BRA", "MOV")
+    address = {"LEA", "LEA.HI.X", "IMAD.WIDE.U32", "IMAD.MOV.U32", "IMAD.MOV"}
+    counted = [t.split()[0] for t in ops[last_load + 1:store]
+               if not t.strip().startswith(skip)
+               and t.split()[0] not in address]
+    fma = sum(op.startswith(("IMAD", "VIADD")) for op in counted)
+    return len(counted) - fma, fma
+
+
+def pgwalk_split(mask, rays8, woop, any_hit):
+    """The work split of a B7 call on these operands, as its kernels
+    chose it: one more launch's device plan (``pgwalk_device_plan``),
+    checked equal to its host mirror (``traversal.pgwalk_shape``,
+    ``traversal.pgwalk_plan``), which also gives the tiles with work.
+    Returns a printable summary and the (tiles with work, items) pair."""
+    import torch
+
+    from srt_tpu_torch.ops import traversal as tr
+    sms = torch.cuda.get_device_properties(rays8.device).multi_processor_count
+    k, lanes, min_chunk, target = tr.pgwalk_shape(mask.shape[0], sms)
+    cnt, chunk, items = tr.pgwalk_plan(mask, k, min_chunk, target)
+    device = tr.pgwalk_device_plan(mask, rays8, woop, any_hit)
+    check(device == (chunk, items), f"pgwalk's device plan (chunk, items) "
+                                    f"{device}, its host mirror "
+                                    f"{(chunk, items)}")
+    busy = int((cnt > 0).sum())
+    text = (f"{int((mask != 0).any(1).sum())} groups with work, "
+            f"{popcount(mask)} set bits, K={k} L={lanes}, {busy} tiles with "
+            f"work, chunk {chunk}, {items} items (device plan)")
+    return text, busy, items
+
+
 def cull_tests(args):
     """(super tests, cluster tests) a two-level cull (B3, B6) needs on
     these inputs: S per live ray, and 16 per (live ray, super it enters
@@ -429,7 +526,9 @@ def bound_of(name, args, out):
     """(bound_ms, bound_by, work) of one kernel call: the larger of the
     bytes its tensor inputs and outputs must move (each once) over the
     card's memory rate and the operations these inputs need over its FP32
-    rate; ``work`` says what was counted.  The walks count the clusters
+    rate (threefry: its busier integer pipe's instructions over that
+    pipe's rate); ``work`` says what was counted.  The
+    walks count the clusters
     their gates admit on these inputs (B2: B2c's counters on the same
     call; B4, B7: the set bits of the words they walk); B1 and B5 count
     the live rays' super slab tests, B3 and B6 the tests of a two-level
@@ -440,8 +539,10 @@ def bound_of(name, args, out):
     out = as_tuple(out)
     moved = nbytes(*[v for v in args.values() if torch.is_tensor(v)], *out)
     work = ""
+    peak = PEAK_OPS_S
     if name == "threefry":
-        ops = out[0].numel() * THREEFRY_OPS
+        ops = out[0].numel() * max(THREEFRY_ALU_OPS, THREEFRY_FMA_OPS)
+        peak = PEAK_INT32_OPS_S
     else:
         live = int((args["rays8"][:, 6] > 0).sum())
     if name in ("cull", "cull_perray"):
@@ -461,7 +562,7 @@ def bound_of(name, args, out):
                * args["group"] * tr.CLUSTER * WOOP_OPS)
     elif name == "pgwalk":
         ops = popcount(args["mask"]) * tr.GROUP * tr.CLUSTER * WOOP_OPS
-    b_ms, o_ms = moved / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+    b_ms, o_ms = moved / PEAK_BYTES_S * 1e3, ops / peak * 1e3
     return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations", work
 
 
@@ -514,6 +615,7 @@ def phase_kernels(scene, cases):
     n = bounce8.shape[0]
     clist, elist, counts = cases.run(3, "cull", "primary tile 256", prim8,
                                      sbounds, 256)
+    cull_cases(3, "", prim8, bounce8, sbounds, cases)
     for any_hit in (False, True):
         kind = "any" if any_hit else "closest"
         cases.run(3, "intersect", f"primary tile 256 {kind}-hit", counts,
@@ -576,6 +678,32 @@ def axis_rays(rays8, cb8):
     return r
 
 
+def partly_dead(rays8, tile):
+    """rays8 with every fourth tile all dead and every other ray of the
+    tile after it dead."""
+    import torch
+    r = rays8.clone()
+    idx = torch.arange(r.shape[0], device=r.device)
+    t = (idx // tile) % 4
+    r[(t == 0) | ((t == 1) & (idx % 2 == 0)), 6] = 0.0
+    return r
+
+
+def cull_cases(tag, label, prim8, bounce8, sbounds, cases):
+    """B1 on partly dead tiles of primaries (tile 256, two rays a thread;
+    tile 32, one: ``traversal.cull_rays_per_thread``) and on the bounce
+    rays (tile 128, a third dead in bounce order)."""
+    from srt_tpu_torch.ops import traversal as tr
+    s = sbounds.shape[1]
+    for tile in (256, 32):
+        rpt = tr.cull_rays_per_thread(tile)
+        cases.run(tag, "cull", f"{label}primary tile {tile} partly dead S={s} "
+                  f"{rpt} ray(s)/thread", partly_dead(prim8, tile), sbounds,
+                  tile)
+    cases.run(tag, "cull", f"{label}bounce tile 128 S={s}", bounce8,
+              sbounds, 128)
+
+
 def few_tile_cases(tag, name, scene, woop, cases):
     """B2 or B2s (``name``) at tile 32 on 8 tiles of rays from the
     headline camera to a 16x16 grid of points of the square [-1, 1]^2 at
@@ -594,7 +722,8 @@ def few_tile_cases(tag, name, scene, woop, cases):
     origin = torch.tensor(HEADLINE_CAMERA["origin"], device=dev)[:, None]
     rays8 = tr.pack_rays(scene, 0, origin.expand(3, 256), target - origin,
                          float("inf"), 32)[0]
-    lists = tr.cull(rays8, sbounds, 32)
+    lists = cases.run(tag, "cull", "8 tiles of 32 primaries", rays8, sbounds,
+                      32)
     t = int(lists[2][:, 0].argmax())
     one = [x[t:t + 1] for x in lists]
     for label, (clist, elist, counts), r8 in (
@@ -730,6 +859,12 @@ def replay_frame(tag, plan, cases, key):
                 mode += f", {n_groups} groups, {listed} listed, P={parts}"
             elif name == "cull_pg2":
                 mode += f", {rays8.shape[0] // args['group']} groups"
+            elif name == "cull":
+                mode += f", S={args['sbounds'].shape[1]}"
+            elif name == "pgwalk":
+                split = pgwalk_split(args["mask"], rays8, args["woop"],
+                                     args["any_hit"])[0]
+                mode += f", {split}"
             elif name.startswith("intersect"):
                 mode += f", {rays8.shape[0] // args['tile']} tiles"
             case = (f"frame launch {k}: {rays8.shape[0]} rays "
@@ -910,7 +1045,10 @@ def stream_cases(scene, cases):
     _, cb, sbounds, cb8, s_count, _ = tr.model_tables(scene, 0)
     woop_s = tr.stream_table(scene, 0)
     prim8, bounce8, shadow8 = walk_rays(scene)
-    clist, elist, counts = tr.cull(prim8, sbounds, 256)
+    clist, elist, counts = cases.run("6a", "cull",
+                                     f"config8 primary tile 256 S={s_count}",
+                                     prim8, sbounds, 256)
+    cull_cases("6a", "config8 ", prim8, bounce8, sbounds, cases)
     for any_hit in (False, True):
         kind = "any" if any_hit else "closest"
         cases.run("6a", "intersect_stream",
@@ -1073,6 +1211,7 @@ def binned_cases(scene, cases):
                                   (False, "primary closest", prim8)):
         mask = tr.cull_gmask(rays8, cb8, s_count)
         cases.run("8a", "pgwalk", f"{label}-hit", mask, rays8, woop, any_hit)
+    pgwalk_few_and_tie_cases(scene, bounce8, shadow8, cases)
     # These random rays need more pair slots than the frames' 8 per group:
     # each case takes the smallest pair_factor that holds its pairs.
     tile = 128
@@ -1095,6 +1234,47 @@ def binned_cases(scene, cases):
                   f"pair_factor {factor})",
                   tile_counts, tile_super, elist0, pair_rays, cb, woop, tile,
                   any_hit)
+
+
+def pgwalk_few_and_tie_cases(scene, bounce8, shadow8, cases):
+    """B7 on FEW_GROUP_RAYS bounce rays with all but a few groups dead
+    (long masks in few tiles: the kernels must split the tiles' clusters
+    into more work items than tiles), closest and any-hit; then on the
+    sphere's tables repeated (every hit an exact tie, which the first copy
+    must win), on those rays and on all the bounce rays."""
+    import torch
+
+    from srt_tpu_torch.ops import traversal as tr
+    _, _, _, cb8, s_count, _ = tr.model_tables(scene, 0)
+    woop = tr.stream_table(scene, 0)
+    idx = torch.arange(FEW_GROUP_RAYS, device=bounce8.device)
+    live = torch.isin(idx // tr.GROUP, torch.tensor(FEW_LIVE_GROUPS,
+                                                    device=idx.device))
+    few = {}
+    for any_hit, kind, rays8 in ((False, "closest", bounce8),
+                                 (True, "any", shadow8)):
+        r8 = rays8[:FEW_GROUP_RAYS].clone()
+        r8[~live, 6] = 0.0
+        few[any_hit] = r8
+        mask = tr.cull_gmask(r8, cb8, s_count)
+        text, busy, items = pgwalk_split(mask, r8, woop, any_hit)
+        check(items > busy, f"pgwalk on {FEW_GROUP_RAYS} rays, {kind}-hit: "
+                            f"{items} items for {busy} tiles, no split")
+        cases.run("8a", "pgwalk", f"{FEW_GROUP_RAYS} rays "
+                  f"({int((r8[:, 6] > 0).sum())} live) {kind}-hit: {text}",
+                  mask, r8, woop, any_hit)
+    for label, rays8 in ((f"{FEW_GROUP_RAYS} rays", few[False]),
+                         (f"{bounce8.shape[0]} bounce rays", bounce8)):
+        mask = tr.cull_gmask(rays8, torch.cat([cb8, cb8], 1), 2 * s_count)
+        woop2 = torch.cat([woop, woop])
+        t, i = cases.run("8a", "pgwalk", f"sphere x2 {label} closest-hit: "
+                         f"{pgwalk_split(mask, rays8, woop2, False)[0]}",
+                         mask, rays8, woop2)
+        ref = tr.pgwalk(tr.cull_gmask(rays8, cb8, s_count), rays8, woop)
+        check(torch.equal(t, ref[0]) and torch.equal(i, ref[1]),
+              f"pgwalk sphere x2 {label}: exact ties did not go to the "
+              f"first copy")
+        check(bool((i >= 0).any()), f"pgwalk sphere x2 {label}: no hits")
 
 
 @contextlib.contextmanager
@@ -1219,12 +1399,20 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     lib = cuda_lib.load()
-    ptxas = [ln for ln in lib.log.splitlines() if "registers" in ln
-             or "spill" in ln]
+    ptxas = ptxas_lines(lib.log)
     print(f"[2] build: {lib.build_seconds:.3f} s nvcc ({lib.path.name}), "
           f"load {time.perf_counter() - t0:.3f} s", flush=True)
     for ln in ptxas:
         print(f"[2] {ln.strip()}", flush=True)
+    sass = threefry_sass_ops(lib.path)
+    want = (THREEFRY_ALU_OPS, THREEFRY_FMA_OPS)
+    check(sass in (None, want), f"threefry's SASS has {sass} (ALU, FMA) "
+                                f"instructions per point, the bounds count "
+                                f"{want}")
+    print(f"[2] threefry: {want} (ALU-pipe, FMA-pipe) integer instructions "
+          f"per point, "
+          f"{'checked in the SASS' if sass else 'not checked (no cuobjdump)'}",
+          flush=True)
 
     dev = torch.device("cuda", 0)
     cases = Cases(card)

@@ -54,7 +54,6 @@ using namespace srt;
 constexpr int RING = 3;        // cluster buffers: copies RING - 1 ahead
 constexpr int LIST_SH = 256;   // list entries staged in shared memory
 constexpr int PAIRS = CLUSTER / 2;
-constexpr uint64_t NO_KEY = ~0ull;
 
 // The issuing thread's cursor over the group's listed clusters, in list
 // order; it yields list positions target, target + parts, ...
@@ -197,32 +196,20 @@ __global__ void __launch_bounds__(1024)
       out_i[ray] = hit ? bi : -1;
     } else {
       const size_t n_rays = (size_t)(gridDim.x / parts) * group;
-      keys[p * n_rays + ray] =
-          hit ? ((uint64_t)__float_as_uint(bt) << 32) | (unsigned)bi : NO_KEY;
+      keys[p * n_rays + ray] = hit ? hit_key(bt, bi) : NO_KEY;
     }
   }
 }
 
-// Per ray: the minimum key over the P slices, decoded; no key gives
-// min(t_max, BIG) and -1.
+// Per ray: the minimum key over the P slices (merge_keys, no key gives
+// min(t_max, BIG) and -1).
 __global__ void pgwalk2_merge(const uint64_t* __restrict__ keys, int parts,
                               size_t n_rays, const float* __restrict__ rays8,
                               float* __restrict__ out_t,
                               int* __restrict__ out_i) {
   const size_t ray = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (ray >= n_rays) return;
-  uint64_t key = NO_KEY;
-  for (int p = 0; p < parts; ++p) {
-    const uint64_t k = keys[p * n_rays + ray];
-    if (k < key) key = k;
-  }
-  if (key == NO_KEY) {
-    out_t[ray] = nmin(rays8[8 * ray + 6], BIG);
-    out_i[ray] = -1;
-  } else {
-    out_t[ray] = __uint_as_float((unsigned)(key >> 32));
-    out_i[ray] = (int)(key & 0xffffffffu);
-  }
+  if (ray < n_rays) merge_keys<true>(keys, parts, n_rays, rays8, out_t, out_i,
+                                     ray);
 }
 
 int launch(const int* clist, const int* bits, const int* counts, int list_w,

@@ -1,8 +1,8 @@
 // Shared device code of the walk kernels (cull.cu, intersect.cu,
 // cull_pg2.cu, pgwalk2.cu, cull_perray.cu, cull_gmask.cu, pgwalk.cu):
 // constants, NaN-propagating min/max, the slab
-// test, the Woop unit-triangle evaluation and the walks' bulk-copy
-// stage.  The arithmetic matches the
+// test, the Woop unit-triangle evaluation, the walks' bulk-copy
+// stage and the split walks' key merge.  The arithmetic matches the
 // plain PyTorch versions in srt_tpu_torch/ops/traversal.py operation for
 // operation; the library is built with -fmad=false, so every multiply and
 // add rounds separately on both sides and candidate t agrees bit for bit.
@@ -35,6 +35,20 @@ __device__ __forceinline__ float nmin(float a, float b) {
 __device__ __forceinline__ float nmax(float a, float b) {
   return (a > b || a != a) ? a : b;
 }
+// The same in one instruction each (PTX min.NaN / max.NaN, sm_80 and
+// later, where the selects above take three), for values that meet only
+// compares or nmax(x, 0): the two forms differ at most in the sign of a
+// zero result, which neither can see.
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, t_max, t_lo;
@@ -47,7 +61,8 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ rays8,
   return Ray{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
 }
 
-// The slab interval [t_near, t_far] of a box (NaN-propagating).  FMA_FORM
+// The slab interval [t_near, t_far] of a box (NaN-propagating; its users
+// only compare the ends and take nmax(t_near, 0)).  FMA_FORM
 // is the pg2 cull's box*inv - o*inv, with (px, py, pz) = o*inv; otherwise
 // (box - o)*inv with (px, py, pz) = o.
 template <bool FMA_FORM>
@@ -66,8 +81,10 @@ __device__ __forceinline__ void slab_span(float lx, float ly, float lz,
     t0y = (ly - py) * iy; t1y = (hy - py) * iy;
     t0z = (lz - pz) * iz; t1z = (hz - pz) * iz;
   }
-  *t_near = nmax(nmax(nmin(t0x, t1x), nmin(t0y, t1y)), nmin(t0z, t1z));
-  *t_far = nmin(nmin(nmax(t0x, t1x), nmax(t0y, t1y)), nmax(t0z, t1z));
+  *t_near = max_nan(max_nan(min_nan(t0x, t1x), min_nan(t0y, t1y)),
+                    min_nan(t0z, t1z));
+  *t_far = min_nan(min_nan(max_nan(t0x, t1x), max_nan(t0y, t1y)),
+                   max_nan(t0z, t1z));
 }
 
 // Slab test, entry bound max(t_near, 0) (not exit-if-inside: a box entered
@@ -117,7 +134,7 @@ __device__ __forceinline__ bool woop_test(const float (&q)[WOOP_ROWS],
   const float t = -zo * inv;
   const float u = xo + t * xd;
   const float v = yo + t * yd;
-  const float m = nmin(nmin(u, v), (EDGE_HI - u) - v);
+  const float m = min_nan(min_nan(u, v), (EDGE_HI - u) - v);
   *t_out = t;
   return (m >= -EDGE_EPS) && !parallel && (t > T_EPS);
 }
@@ -133,7 +150,7 @@ __device__ __forceinline__ bool woop_eval(const float* __restrict__ w, int l,
   return woop_test<NESTED>(q, r, t_out);
 }
 
-// The walks' bulk-copy stage (B2/B2s and B4/B4s: a ring): shared-
+// The walks' bulk-copy stage (B2/B2s, B4/B4s and B7: a ring): shared-
 // memory buffers of one cluster's 13 used Woop rows (13 x 128 x 4 = 6,656
 // bytes, contiguous and 16-byte aligned in the table), each filled by one
 // 1-D bulk copy (cp.async.bulk, the Hopper form of pltpu.make_async_copy)
@@ -221,6 +238,41 @@ __device__ __forceinline__ void stage_wait(Stage& st, int s) {
         : "memory");
   }
   st.phase ^= 1u << s;
+}
+
+// The split walks' per-ray keys (B4/B4s, B7): (t bits << 32) | index.  A
+// candidate has t > T_EPS > 0, and float bits of non-negative floats order
+// as the floats do, so the minimum key is the lexicographic minimum of
+// (t, index); NO_KEY means no candidate.
+constexpr uint64_t NO_KEY = ~0ull;
+
+__device__ __forceinline__ uint64_t hit_key(float t, int i) {
+  return ((uint64_t)__float_as_uint(t) << 32) | (unsigned)i;
+}
+
+// One ray of the split walks' merge: the minimum key over the P slices
+// of keys [P, n_rays], decoded; no key gives t_max (min(t_max, BIG) with
+// CAP) and -1.  Each walk's merge kernel calls it once per ray.
+template <bool CAP>
+__device__ __forceinline__ void merge_keys(const uint64_t* __restrict__ keys,
+                                           int parts, size_t n_rays,
+                                           const float* __restrict__ rays8,
+                                           float* __restrict__ out_t,
+                                           int* __restrict__ out_i,
+                                           size_t ray) {
+  uint64_t key = NO_KEY;
+  for (int p = 0; p < parts; ++p) {
+    const uint64_t k = keys[p * n_rays + ray];
+    if (k < key) key = k;
+  }
+  if (key == NO_KEY) {
+    const float t_max = rays8[8 * ray + 6];
+    out_t[ray] = CAP ? nmin(t_max, BIG) : t_max;
+    out_i[ray] = -1;
+  } else {
+    out_t[ray] = __uint_as_float((unsigned)(key >> 32));
+    out_i[ray] = (int)(key & 0xffffffffu);
+  }
 }
 
 }  // namespace srt

@@ -46,7 +46,7 @@ _WALK_B2 = [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P]
 _WALK_B4 = [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P]
 # C entry points: name -> argument types (the trailing stream included).
 SIGNATURES = {
-    "srt_cull": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "srt_cull": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "srt_intersect": _WALK_B2 + [_P],
     "srt_intersect_stream": _WALK_B2 + [_P],
     "srt_intersect_count": _WALK_B2 + [_P, _P],
@@ -56,7 +56,8 @@ SIGNATURES = {
     "srt_threefry": [_P, _P, _I, _U, _I, _U, _I, _P, _P],
     "srt_cull_perray": [_P, _P, _I, _I, _P, _P],
     "srt_cull_gmask": [_P, _P, _I, _I, _I, _P, _P],
-    "srt_pgwalk": [_P, _I, _P, _P, _I, _I, _P, _P, _P],
+    "srt_pgwalk": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                   _P],
 }
 # Branch counters of ``traversal.model_hit``'s pair-binned walk: calls
 # that took the pair tiles, calls that fell back to the tiled walk.  They

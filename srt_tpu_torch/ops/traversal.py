@@ -266,6 +266,19 @@ def cull_plain(rays8, sbounds, tile: int):
     return clist, elist, counts
 
 
+# B1 launch shape (``csrc/cull.cu``): rays per thread, 1 or 2 (2 needs a
+# tile of a multiple of 64 rays).  Chosen with sweep_cull_walk.py on the
+# headline (S = 50) and config8 (S = 246) frames' launches.
+CULL_RAYS_PER_THREAD = 2
+
+
+def cull_rays_per_thread(tile: int) -> int:
+    """Rays per thread of a B1 launch at ``tile`` rays per tile: a whole
+    number of warps per block."""
+    rpt = CULL_RAYS_PER_THREAD
+    return rpt if tile % (32 * rpt) == 0 else 1
+
+
 def cull(rays8, sbounds, tile: int, plain: bool = False):
     """B1 (replaces ``_cull_kernel``, traversal_pallas.py:134)."""
     if plain or _on_cpu(rays8):
@@ -278,7 +291,7 @@ def cull(rays8, sbounds, tile: int, plain: bool = False):
     elist = torch.empty((n_tiles, s), dtype=torch.float32, device=dev)
     counts = torch.empty((n_tiles, 1), dtype=torch.int32, device=dev)
     _launch("cull", _f32(rays8), _f32(sbounds), n_tiles, tile, s,
-            clist, elist, counts)
+            cull_rays_per_thread(tile), clist, elist, counts)
     return clist, elist, counts
 
 
@@ -758,21 +771,98 @@ def pgwalk_plain(mask, rays8, woop, any_hit: bool = False):
                              GROUP, any_hit, rays8[:, 6], nested=False)
 
 
+# B7 launch shape (``csrc/pgwalk.cu``): a block walks a tile of
+# PGWALK_GROUPS neighbouring groups, PGWALK_LANES lanes per ray
+# (PGWALK_FEW_LANES on launches below PGWALK_FILL threads per SM); the
+# device splits the tiles' clusters into about PGWALK_ITEMS work items per
+# SM of at least PGWALK_MIN_CHUNK clusters each.  Chosen with
+# sweep_cull_walk.py on the pg frame's own launches: 8 lanes take each
+# 4,096-ray launch (a few live groups) about 14% below 4 lanes; at 65,536
+# rays 4 lanes are as fast or faster, hence the fill of 1024.
+PGWALK_GROUPS = 8
+PGWALK_LANES = 4
+PGWALK_FEW_LANES = 8
+PGWALK_FILL = 1024
+PGWALK_MIN_CHUNK = 2
+PGWALK_ITEMS = 16
+
+
+def pgwalk_shape(n_groups: int, sms: int):
+    """(groups per tile K, lanes per ray, least clusters per work item,
+    work items aimed at) of a B7 launch of ``n_groups`` groups on a card of
+    ``sms`` SMs, from the launch's shape alone: K * 8 * lanes threads per
+    block, at most 1024."""
+    lanes = PGWALK_LANES
+    if n_groups * GROUP * lanes < sms * PGWALK_FILL:
+        lanes = PGWALK_FEW_LANES
+    k = max(1, min(PGWALK_GROUPS, 128 // GROUP, 1024 // (GROUP * lanes)))
+    return k, lanes, PGWALK_MIN_CHUNK, sms * PGWALK_ITEMS
+
+
+def pgwalk_plan(mask, k: int, min_chunk: int, target: int):
+    """B7's work items, as its kernels split them on the device: per tile
+    of ``k`` consecutive groups, the clusters set in the OR of their words
+    (cnt [n_tiles]); chunk = max(min_chunk, ceil(total / target)); tile b
+    gives ceil(cnt[b] / chunk) items, item j of it the clusters of rank
+    j * chunk .. (j + 1) * chunk - 1 in ascending cluster order.  Returns
+    (cnt, chunk, items)."""
+    n_groups, s = mask.shape
+    pad = -n_groups % k
+    words = torch.cat([mask & 0xFFFF, mask.new_zeros((pad, s))])
+    words = words.view(-1, k, s)
+    orw = words[:, 0].clone()
+    for g in range(1, k):
+        orw |= words[:, g]
+    cnt = sum(((orw >> b) & 1).sum(1) for b in range(SUPER))
+    total = int(cnt.sum())
+    chunk = max(min_chunk, -(-total // target))
+    return cnt, chunk, int(((cnt + chunk - 1) // chunk).sum())
+
+
 def pgwalk(mask, rays8, woop, any_hit: bool = False, plain: bool = False):
     """B7 (replaces ``_pgwalk_kernel``, traversal_pallas.py:937).  mask
     [Np/8, S] int32 from ``cull_gmask``; woop [C, 16, 128]."""
-    _check_group(GROUP, rays8.shape[0])
-    npad = rays8.shape[0]
-    if mask.shape[0] != npad // GROUP:
-        raise ValueError(f"mask has {mask.shape[0]} rows for "
-                         f"{npad // GROUP} groups")
+    _check_pgwalk(mask, rays8)
     if plain or _on_cpu(rays8):
         return pgwalk_plain(mask, rays8, woop, any_hit)
-    out_t = torch.empty((npad, 1), dtype=torch.float32, device=rays8.device)
-    out_i = torch.empty((npad, 1), dtype=torch.int32, device=rays8.device)
+    return _pgwalk_launch(mask, rays8, woop, any_hit)[:2]
+
+
+def pgwalk_device_plan(mask, rays8, woop, any_hit: bool = False):
+    """(chunk, items) of B7's work split as its plan kernel chose it for
+    these CUDA operands, read back after one launch: the device's side of
+    ``pgwalk_plan``, for checks outside the render path."""
+    _check_pgwalk(mask, rays8)
+    if _on_cpu(rays8):
+        raise ValueError("pgwalk_device_plan needs CUDA tensors")
+    work = _pgwalk_launch(mask, rays8, woop, any_hit)[2]
+    chunk, items = work[1:3].tolist()
+    return chunk, items
+
+
+def _check_pgwalk(mask, rays8) -> None:
+    _check_group(GROUP, rays8.shape[0])
+    if mask.shape[0] != rays8.shape[0] // GROUP:
+        raise ValueError(f"mask has {mask.shape[0]} rows for "
+                         f"{rays8.shape[0] // GROUP} groups")
+
+
+def _pgwalk_launch(mask, rays8, woop, any_hit):
+    """One B7 launch: (out_t, out_i, work), work the kernels' control
+    array ([1] chunk, [2] items)."""
+    npad = rays8.shape[0]
+    dev = rays8.device
+    n_groups = npad // GROUP
+    k, lanes, min_chunk, target = pgwalk_shape(n_groups, _sm_count(dev))
+    n_tiles = -(-n_groups // k)
+    work = torch.empty((4 + 2 * n_tiles + 1,), dtype=torch.int32, device=dev)
+    keys = torch.empty((npad,), dtype=torch.int64, device=dev)
+    out_t = torch.empty((npad, 1), dtype=torch.float32, device=dev)
+    out_i = torch.empty((npad, 1), dtype=torch.int32, device=dev)
     _launch("pgwalk", _i32(mask), mask.shape[1], _f32(rays8), _f32(woop),
-            npad // GROUP, int(any_hit), out_t, out_i)
-    return out_t, out_i
+            n_groups, int(any_hit), k, lanes, min_chunk, target, work, keys,
+            out_t, out_i)
+    return out_t, out_i, work
 
 
 # ---------------------------------------------------------------------------

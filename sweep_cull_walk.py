@@ -1,19 +1,26 @@
 #!/usr/bin/env python3
-"""Time the tiled walk B2/B2s (``srt_tpu_torch/csrc/intersect.cu``) under
-its launch shapes on one NVIDIA GPU.
+"""Time the tiled-walk cull B1 (``srt_tpu_torch/csrc/cull.cu``), the tiled
+walk B2/B2s (``csrc/intersect.cu``) and the mask-scan walk B7
+(``csrc/pgwalk.cu``) under their launch shapes on one NVIDIA GPU.
 
-Usage: ``python3 sweep_cull_walk.py`` from the repository root.  It
-records every B2/B2s call of one headline frame, one config8 frame and
-one headline frame through ``walks="tiled@256,binned"``
-(``chip_smoke.py``'s scenes, cameras and walks), adds the 65,536-ray
-cases of ``chip_smoke.py`` phases 3 and 6a (B2 on headline primaries,
-B2s on config8 primaries), then times each call (``chip_smoke``'s
-``device_median``: device time, median of 5) under each choice of lanes
-per ray: at most ``traversal.INTERSECT_LANES``, fewer where the launch
-reaches ``traversal.INTERSECT_FILL`` threads per SM (1 << 30 never
-limits).  Every choice's output must equal the plain version's.  Prints
-one line per call and choice, and the per-frame sums by choice; the
-choice the wrappers use is marked.
+Usage: ``python3 sweep_cull_walk.py [kernel ...]`` from the repository
+root (kernels: ``cull``, ``intersect``, ``intersect_stream``, ``pgwalk``;
+none sweeps all).  It records every B1, B2/B2s and B7 call of one
+headline frame, one config8 frame and one headline frame each through
+``walks="tiled@256,binned"`` and ``"tiled@256,pg"`` (``chip_smoke.py``'s
+scenes, cameras and walks), adds the 65,536-ray cases of
+``chip_smoke.py`` phases 3, 6a and 8a (B2 on headline primaries, B2s on
+config8 primaries, B7 on bounce and shadow rays) and its few-group B7
+cases, then times each call (``chip_smoke``'s ``device_median``: device
+time, median of 5) under each choice of its knobs: B1's rays per thread
+(``traversal.CULL_RAYS_PER_THREAD``); B2's lanes per ray, at most
+``traversal.INTERSECT_LANES``, fewer where the launch reaches
+``traversal.INTERSECT_FILL`` threads per SM (1 << 30 never limits); B7's
+groups per tile, lanes per ray (on launches that fill the card, and on
+those below ``PGWALK_FILL`` threads per SM), least chunk and work items
+per SM (``traversal.PGWALK_*``).  Every choice's output must equal the plain
+version's.  Prints one line per call and choice, and the per-frame sums
+by choice; the choice the wrappers use is marked.
 """
 
 from __future__ import annotations
@@ -25,7 +32,18 @@ import chip_smoke as cs
 _WALK = [dict(INTERSECT_LANES=lanes, INTERSECT_FILL=fill)
          for lanes, fill in ((1, 1 << 30), (2, 1 << 30), (2, 4 * 2048),
                              (4, 1 << 30), (4, 4 * 2048), (4, 8 * 2048))]
-CHOICES = {"intersect": _WALK, "intersect_stream": _WALK}
+_PG = dict(PGWALK_GROUPS=8, PGWALK_LANES=4, PGWALK_FEW_LANES=8,
+           PGWALK_FILL=1024, PGWALK_MIN_CHUNK=2, PGWALK_ITEMS=16)
+_PGWALK = ([dict(_PG, PGWALK_GROUPS=k, PGWALK_LANES=lanes)
+            for k in (4, 8, 16) for lanes in (4, 8)]
+           + [dict(_PG, PGWALK_FEW_LANES=few, PGWALK_MIN_CHUNK=chunk,
+                   PGWALK_ITEMS=items)
+              for few in (4, 8, 16) for chunk in (2, 4, 8) for items in (4, 16)
+              if (few, chunk, items) != (8, 2, 16)]
+           + [dict(_PG, PGWALK_FILL=fill) for fill in (2048, 4096)])
+CHOICES = {"cull": [dict(CULL_RAYS_PER_THREAD=rpt) for rpt in (1, 2)],
+           "intersect": _WALK, "intersect_stream": _WALK,
+           "pgwalk": _PGWALK}
 
 
 def record(plan, key):
@@ -47,7 +65,8 @@ def frames(dev):
     for label, sphere, size, depth, walks in (
             ("headline", cs.HEADLINE_SPHERE, cs.HEADLINE_SIZE, 4, None),
             ("config8", cs.CONFIG8_SPHERE, cs.CONFIG8_SIZE, 2, None),
-            ("binned", cs.HEADLINE_SPHERE, cs.HEADLINE_SIZE, 4, "binned")):
+            ("binned", cs.HEADLINE_SPHERE, cs.HEADLINE_SIZE, 4, "binned"),
+            ("pg", cs.HEADLINE_SPHERE, cs.HEADLINE_SIZE, 4, "pg")):
         if sphere not in scenes:
             scenes[sphere] = cs.build_scene(dev, *sphere)[0]
         scene = scenes[sphere]
@@ -62,9 +81,24 @@ def frames(dev):
 
 
 def cases(scenes):
-    """The 65,536-ray cases as recorded calls."""
+    """The 65,536-ray cases and the few-group B7 cases as recorded
+    calls."""
+    import torch
+
     from srt_tpu_torch.ops import traversal as tr
     out = []
+    scene = scenes[cs.HEADLINE_SPHERE]
+    woop, _, _, cb8, s_count, _ = tr.model_tables(scene, 0)
+    _, bounce8, shadow8 = cs.walk_rays(scene)
+    idx = torch.arange(cs.FEW_GROUP_RAYS, device=bounce8.device)
+    live = torch.isin(idx // tr.GROUP, torch.tensor(cs.FEW_LIVE_GROUPS,
+                                                    device=idx.device))
+    for any_hit, rays8 in ((False, bounce8), (True, shadow8)):
+        r8 = rays8[:cs.FEW_GROUP_RAYS].clone()
+        r8[~live, 6] = 0.0
+        for r in (r8, rays8):
+            out.append(("pgwalk", dict(mask=tr.cull_gmask(r, cb8, s_count),
+                                       rays8=r, woop=woop, any_hit=any_hit)))
     for sphere, name in ((cs.HEADLINE_SPHERE, "intersect"),
                          (cs.CONFIG8_SPHERE, "intersect_stream")):
         scene = scenes[sphere]
@@ -90,18 +124,22 @@ def main() -> int:
     print(card, flush=True)
     dev = torch.device("cuda", 0)
     calls, scenes = frames(dev)
-    calls["65536-ray cases"] = cases(scenes)
+    calls["cases"] = cases(scenes)
+    only = set(sys.argv[1:]) or set(CHOICES)
     sums, marks = {}, {}
     for label, recorded in calls.items():
         for k, (name, args) in enumerate(recorded):
+            if name not in only:
+                continue
             fn = getattr(tr, name)
             args = {a: v for a, v in args.items() if a != "plain"}
             ref = fn(**args, plain=True)
             rays8 = args["rays8"]
             default = {knob: getattr(tr, knob) for knob in CHOICES[name][0]}
             head = (f"{label} call {k} {name}: {rays8.shape[0]} rays "
-                    f"({int((rays8[:, 6] > 0).sum())} live), tile "
-                    f"{args['tile']}")
+                    f"({int((rays8[:, 6] > 0).sum())} live), "
+                    + (f"tile {args['tile']}" if "tile" in args else
+                       f"{cs.popcount(args['mask'])} set bits"))
             for choice in CHOICES[name]:
                 for knob, value in choice.items():
                     setattr(tr, knob, value)
