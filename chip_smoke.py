@@ -547,6 +547,8 @@ def bound_of(name, args, out):
         live = int((args["rays8"][:, 6] > 0).sum())
     if name in ("cull", "cull_perray"):
         ops = live * args["sbounds"].shape[1] * SLAB_OPS
+        if name == "cull_perray":
+            work = f"{live * args['sbounds'].shape[1]} super tests"
     elif name in ("cull_pg2", "cull_gmask"):
         supers, clusters = cull_tests(args)
         ops = (supers + clusters) * SLAB_OPS
@@ -859,6 +861,10 @@ def replay_frame(tag, plan, cases, key):
                 mode += f", {n_groups} groups, {listed} listed, P={parts}"
             elif name == "cull_pg2":
                 mode += f", {rays8.shape[0] // args['group']} groups"
+            elif name in ("cull_perray", "cull_gmask"):
+                live_groups = int((rays8[:, 6] > 0).view(-1, 8).any(1).sum())
+                mode += (f", {rays8.shape[0] // 8} groups ({live_groups} "
+                         f"live), S={args['sbounds'].shape[1]}")
             elif name == "cull":
                 mode += f", S={args['sbounds'].shape[1]}"
             elif name == "pgwalk":
@@ -1069,6 +1075,10 @@ def stream_cases(scene, cases):
     cases.run("6a", "intersect_count",
               "config8 primary tile 256 stream closest-hit", counts, clist,
               elist, prim8, cb, woop_s, 256, stream=True)
+    # B5 and B6 are off config8's path (its walks stream), but its tables
+    # stage several chunks of supers (S = 246).
+    b5_b6_cases("6a", f"config8 bounce rays S={s_count}", bounce8, cb8,
+                s_count, sbounds, cases)
 
 
 def resident_vs_stream(label, scene, card):
@@ -1193,6 +1203,12 @@ def phase_counters(scenes, cases):
               f"[{cases.card}]", flush=True)
 
 
+def b5_b6_cases(tag, label, rays8, cb8, s_count, sbounds, cases):
+    """B5 and B6 against their plain versions on the same rays."""
+    cases.run(tag, "cull_perray", label, rays8, sbounds)
+    cases.run(tag, "cull_gmask", label, rays8, cb8, s_count, sbounds)
+
+
 def binned_cases(scene, cases):
     """Phase 8a: B5, B6, B7 and the pair tiles through B2 against their
     plain versions on the headline tables."""
@@ -1203,13 +1219,14 @@ def binned_cases(scene, cases):
     woop, cb, sbounds, cb8, s_count, _ = tr.model_tables(scene, 0)
     prim8, bounce8, shadow8 = walk_rays(scene)
     for label, rays8 in (("bounce (a third dead)", bounce8),
-                         ("primary (live)", prim8)):
-        cases.run("8a", "cull_perray", f"{label} rays", rays8, sbounds)
-        cases.run("8a", "cull_gmask", f"{label} rays", rays8, cb8, s_count)
+                         ("primary (live)", prim8),
+                         ("axis-parallel warps", axis_rays(bounce8, cb8))):
+        b5_b6_cases("8a", f"{label} rays", rays8, cb8, s_count, sbounds,
+                    cases)
     for any_hit, label, rays8 in ((False, "bounce closest", bounce8),
                                   (True, "shadow any", shadow8),
                                   (False, "primary closest", prim8)):
-        mask = tr.cull_gmask(rays8, cb8, s_count)
+        mask = tr.cull_gmask(rays8, cb8, s_count, sbounds)
         cases.run("8a", "pgwalk", f"{label}-hit", mask, rays8, woop, any_hit)
     pgwalk_few_and_tie_cases(scene, bounce8, shadow8, cases)
     # These random rays need more pair slots than the frames' 8 per group:
@@ -1245,7 +1262,7 @@ def pgwalk_few_and_tie_cases(scene, bounce8, shadow8, cases):
     import torch
 
     from srt_tpu_torch.ops import traversal as tr
-    _, _, _, cb8, s_count, _ = tr.model_tables(scene, 0)
+    _, _, sbounds, cb8, s_count, _ = tr.model_tables(scene, 0)
     woop = tr.stream_table(scene, 0)
     idx = torch.arange(FEW_GROUP_RAYS, device=bounce8.device)
     live = torch.isin(idx // tr.GROUP, torch.tensor(FEW_LIVE_GROUPS,
@@ -1256,21 +1273,26 @@ def pgwalk_few_and_tie_cases(scene, bounce8, shadow8, cases):
         r8 = rays8[:FEW_GROUP_RAYS].clone()
         r8[~live, 6] = 0.0
         few[any_hit] = r8
-        mask = tr.cull_gmask(r8, cb8, s_count)
+        b5_b6_cases("8a", f"{FEW_GROUP_RAYS} rays ({int((r8[:, 6] > 0).sum())}"
+                    f" live) {kind}-hit", r8, cb8, s_count, sbounds, cases)
+        mask = tr.cull_gmask(r8, cb8, s_count, sbounds)
         text, busy, items = pgwalk_split(mask, r8, woop, any_hit)
         check(items > busy, f"pgwalk on {FEW_GROUP_RAYS} rays, {kind}-hit: "
                             f"{items} items for {busy} tiles, no split")
         cases.run("8a", "pgwalk", f"{FEW_GROUP_RAYS} rays "
                   f"({int((r8[:, 6] > 0).sum())} live) {kind}-hit: {text}",
                   mask, r8, woop, any_hit)
+    cb8_2 = torch.cat([cb8, cb8], 1)
+    sbounds_2 = tr.super_bounds(cb8_2, 2 * s_count)
     for label, rays8 in ((f"{FEW_GROUP_RAYS} rays", few[False]),
                          (f"{bounce8.shape[0]} bounce rays", bounce8)):
-        mask = tr.cull_gmask(rays8, torch.cat([cb8, cb8], 1), 2 * s_count)
+        mask = tr.cull_gmask(rays8, cb8_2, 2 * s_count, sbounds_2)
         woop2 = torch.cat([woop, woop])
         t, i = cases.run("8a", "pgwalk", f"sphere x2 {label} closest-hit: "
                          f"{pgwalk_split(mask, rays8, woop2, False)[0]}",
                          mask, rays8, woop2)
-        ref = tr.pgwalk(tr.cull_gmask(rays8, cb8, s_count), rays8, woop)
+        ref = tr.pgwalk(tr.cull_gmask(rays8, cb8, s_count, sbounds), rays8,
+                        woop)
         check(torch.equal(t, ref[0]) and torch.equal(i, ref[1]),
               f"pgwalk sphere x2 {label}: exact ties did not go to the "
               f"first copy")

@@ -1,6 +1,6 @@
 // B6: per-group cluster masks of the mask-scan walk.  Replaces
 // _cull_gmask_kernel (srt_tpu/ops/traversal_pallas.py:436, launched by
-// _launch_cull_gmask).
+// _launch_cull_gmask at :501).
 //
 // Per group of 8 consecutive rays: slab-test every ray against every
 // cluster AABB in B1's (box - o) * inv form (not B3's box * inv - o * inv:
@@ -9,62 +9,146 @@
 // 16*s + k): mask [Np/8, S] int32.  Padding clusters carry NaN boxes and
 // set no bit.
 //
-// What bounds it: 16*S slab tests (~26 operations each) per ray, reading
-// the cluster boxes as warp-wide broadcasts; no data-dependent loop.
-// Design: one thread per ray, each super's word built in a register
-// (no super pre-test, unlike cull_pg2.cu), the group OR a
-// shuffle-xor over offsets 4, 2, 1, the group's first lane writing.  The
-// TPU's 256-cluster chunks and MXU bitpack matmul have no counterpart.
-// Warps whose rays are all dead skip the slab tests and write 0, the same
-// result.
+// What bounds it: the slab tests (~26 operations each) a two-level cull
+// needs, S super tests per live ray and 16 cluster tests per (live ray,
+// super it enters); on launches of few live rays, the rays read and the S
+// words written per group.  What held the first design (one thread per
+// ray testing all 16*S clusters, six scalar global loads per box, a
+// three-step shuffle chain per super for the group OR, and one lane in
+// eight storing S scattered words) back, and what this one does:
+//
+// 1. Every ray tested every cluster, though bounce and shadow rays enter
+//    few supers.  Now a warp takes one group: lanes 0-7 load its rays and
+//    their IEEE reciprocals once and share them through shared memory,
+//    and each lane tests all 8 of them as independent chains, with no
+//    branch (a dead ray passes no cluster test; its super test is masked
+//    by its liveness).  Per 32 supers, lane j pre-tests super s0 + j
+//    (sbounds, may_enter<false>) and a ballot gives the supers the group
+//    may enter; only those get cluster tests.
+// 2. The group OR was a shuffle chain per super.  Now each lane tests one
+//    cluster against all of the group's rays, so the OR is the
+//    lane's own; the two halves of the warp take two entered supers at a
+//    time (cluster lane & 15 of each), and one ballot holds both 16-bit
+//    words.  No shuffle chain, no reduction.
+// 3. Scattered stores: now lane j keeps super s0 + j's word and stores
+//    it, so a group's row is written 32 consecutive ints at a time and a
+//    block's rows are one span.  Groups with no live ray store zeros the
+//    same way.
+// 4. The boxes are read from device memory through the L1 cache (each
+//    lane a different cluster, consecutive lanes consecutive clusters,
+//    so each load is two 64-byte segments), not staged: a block holds
+//    only a few groups, and the headline's 25 KB table stays in L1.
+// 5. Few rays filled few SMs.  A block is CULL_GMASK_GROUPS warps
+//    (traversal.py), so a 4,096-ray launch of 512 groups spreads over
+//    the card.
+//
+// Why the pre-test is exact in this form.  Rounding of box - o is
+// monotone in the box bound, multiplying by a fixed inv keeps or reverses
+// the order, and min/max undo the reversal; so a super's t_near is <= and
+// its t_far >= those of every cluster it holds (sbounds is the exact
+// min/max of the super's real clusters, NaN padding excluded), and a
+// super that fails fails every cluster.  x - o is 0 only when x == o, so
+// 0 * +-inf = NaN arises on the super only where some cluster shares that
+// bound; a NaN super test counts as entering.  Dead rays (t_max <= 0)
+// enter nothing.
 #include "traversal_common.cuh"
 
 namespace {
 
 using namespace srt;
 
-constexpr int BLOCK = 128;
+constexpr int GROUP = 8;
+constexpr int MAX_GROUPS = 16;  // warps a block, at most
 
-__global__ void cull_gmask_kernel(const float* __restrict__ rays8,
-                                  const float* __restrict__ cb8, int stride,
-                                  int n_rays, int S, int* __restrict__ mask) {
-  const size_t ray = (size_t)blockIdx.x * BLOCK + threadIdx.x;
-  Ray r = {0.f, 0.f, 0.f, 1.f, 1.f, 1.f, 0.f, 0.f};
-  if (ray < (size_t)n_rays) r = load_ray(rays8, ray);
-  const float ix = 1.f / r.dx, iy = 1.f / r.dy, iz = 1.f / r.dz;
-  const bool live = __any_sync(FULL, r.t_max > 0.f);  // warp-uniform
-  const bool writer = (threadIdx.x & 7) == 0 && ray < (size_t)n_rays;
-  int* row = mask + (ray / 8) * S;
+__global__ void __launch_bounds__(32 * MAX_GROUPS)
+    cull_gmask_kernel(const float* __restrict__ rays8,
+                      const float* __restrict__ cb8, int stride,
+                      const float* __restrict__ sb, int n_groups, int S,
+                      int* __restrict__ mask) {
+  extern __shared__ float4 ray_sh[];  // [warps][GROUP][2]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t g = (size_t)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (g >= (size_t)n_groups) return;  // warp-uniform; no block barrier
+  int* row = mask + g * S;
+  float4* rs = ray_sh + warp * 2 * GROUP;
+  bool lane_live = false;
+  if (lane < GROUP) {
+    const Ray r = load_ray(rays8, g * GROUP + lane);
+    lane_live = r.t_max > 0.f;
+    rs[2 * lane] = make_float4(r.ox, r.oy, r.oz, r.t_max);
+    rs[2 * lane + 1] = make_float4(1.f / r.dx, 1.f / r.dy, 1.f / r.dz, 0.f);
+  }
+  const unsigned live = __ballot_sync(FULL, lane_live);
+  if (!live) {
+    for (int s = lane; s < S; s += 32) row[s] = 0;
+    return;
+  }
+  __syncwarp();
+  float4 o[GROUP], iv[GROUP];  // (origin, t_max), reciprocals
+#pragma unroll
+  for (int k = 0; k < GROUP; ++k) {
+    o[k] = rs[2 * k];
+    iv[k] = rs[2 * k + 1];
+  }
 
-  for (int s = 0; s < S; ++s) {
-    unsigned word = 0;
-    if (live) {
-#pragma unroll 4
-      for (int k = 0; k < SUPER; ++k) {
-        const int c = s * SUPER + k;
-        float sel;
-        if (slab<false>(cb8[c], cb8[stride + c], cb8[2 * stride + c],
-                        cb8[3 * stride + c], cb8[4 * stride + c],
-                        cb8[5 * stride + c], r.ox, r.oy, r.oz, ix, iy, iz,
-                        r.t_max, &sel))
-          word |= 1u << k;
-      }
-      word |= __shfl_xor_sync(FULL, word, 4);
-      word |= __shfl_xor_sync(FULL, word, 2);
-      word |= __shfl_xor_sync(FULL, word, 1);
+  for (int s0 = 0; s0 < S; s0 += 32) {
+    const int s = s0 + lane;
+    bool enter = false;
+    if (s < S) {
+      const float4 a = make_float4(sb[s], sb[S + s], sb[2 * S + s],
+                                   sb[3 * S + s]);
+      const float4 b = make_float4(sb[4 * S + s], sb[5 * S + s], 0.f, 0.f);
+#pragma unroll
+      for (int k = 0; k < GROUP; ++k)
+        enter |= ((live >> k) & 1u) &&
+                 may_enter<false>(a, b, o[k].x, o[k].y, o[k].z, iv[k].x,
+                                  iv[k].y, iv[k].z, o[k].w);
     }
-    if (writer) row[s] = (int)word;
+    unsigned todo = __ballot_sync(FULL, enter);
+    unsigned word = 0;
+    while (todo) {  // warp-uniform
+      const int ja = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const int jb = todo ? __ffs(todo) - 1 : -1;
+      todo &= todo - 1;
+      const int j = lane < 16 ? ja : jb;
+      bool occ = false;
+      if (j >= 0) {
+        const int c = (s0 + j) * SUPER + (lane & 15);
+        const float lx = __ldg(cb8 + c), ly = __ldg(cb8 + stride + c),
+                    lz = __ldg(cb8 + 2 * stride + c),
+                    hx = __ldg(cb8 + 3 * stride + c),
+                    hy = __ldg(cb8 + 4 * stride + c),
+                    hz = __ldg(cb8 + 5 * stride + c);
+#pragma unroll
+        for (int k = 0; k < GROUP; ++k) {
+          float sel;  // a dead ray (t_max <= 0) passes no test
+          occ |= slab<false>(lx, ly, lz, hx, hy, hz, o[k].x, o[k].y, o[k].z,
+                             iv[k].x, iv[k].y, iv[k].z, o[k].w, &sel);
+        }
+      }
+      const unsigned w = __ballot_sync(FULL, occ);
+      if (lane == ja) word = w & 0xffffu;
+      if (lane == jb) word = w >> 16;
+    }
+    if (s < S) row[s] = (int)word;
   }
 }
 
 }  // namespace
 
 extern "C" int srt_cull_gmask(const float* rays8, const float* cb8,
-                              int stride, int n_rays, int S, int* mask,
+                              int stride, const float* sbounds, int n_rays,
+                              int S, int groups_per_block, int* mask,
                               void* stream) {
-  const int grid = (n_rays + BLOCK - 1) / BLOCK;
+  if (groups_per_block < 1 || groups_per_block > MAX_GROUPS)
+    return (int)cudaErrorInvalidValue;
+  const int n_groups = n_rays / GROUP;
+  const int grid = (n_groups + groups_per_block - 1) / groups_per_block;
+  const size_t smem = (size_t)groups_per_block * 2 * GROUP * sizeof(float4);
   if (grid > 0 && S > 0)
-    cull_gmask_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-        rays8, cb8, stride, n_rays, S, mask);
+    cull_gmask_kernel<<<grid, 32 * groups_per_block, smem,
+                        (cudaStream_t)stream>>>(rays8, cb8, stride, sbounds,
+                                                n_groups, S, mask);
   return (int)cudaGetLastError();
 }

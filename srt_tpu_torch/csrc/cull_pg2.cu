@@ -60,19 +60,6 @@ size_t smem_bytes(int threads, int group) {
          (size_t)(threads / seg) * CHUNK * sizeof(unsigned short);
 }
 
-// The super pre-test: false only when the ray enters none of the super's
-// clusters before t_max (see 1. above).
-__device__ __forceinline__ bool may_enter(const float4& a, const float4& b,
-                                          float px, float py, float pz,
-                                          float ix, float iy, float iz,
-                                          float t_max) {
-  float tn, tf;
-  slab_span<true>(a.x, a.y, a.z, a.w, b.x, b.y, px, py, pz, ix, iy, iz, &tn,
-                  &tf);
-  if (tn != tn || tf != tf) return true;
-  return (tn <= tf) && (tf >= 0.f) && (nmax(tn, 0.f) < t_max);
-}
-
 // MAX_THREADS: the launch's block size bound, BLOCK or 1024 (G > BLOCK);
 // ptxas then keeps the registers that many threads may use.
 template <int MAX_THREADS>
@@ -152,9 +139,9 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
       if (live) {
 #pragma unroll 4
         for (int j = 0; j < ns; ++j)
-          todo |= (unsigned long long)may_enter(sbox[2 * j], sbox[2 * j + 1],
-                                                px, py, pz, ix, iy, iz,
-                                                r.t_max)
+          todo |= (unsigned long long)may_enter<true>(
+                      sbox[2 * j], sbox[2 * j + 1], px, py, pz, ix, iy, iz,
+                      r.t_max)
                   << j;
       }
       todo = (unsigned long long)__reduce_or_sync(FULL, (unsigned)(todo >> 32))

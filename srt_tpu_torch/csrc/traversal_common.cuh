@@ -102,6 +102,23 @@ __device__ __forceinline__ bool slab(float lx, float ly, float lz, float hx,
   return (t_near <= t_far) && (t_far >= 0.f) && (*sel < bound);
 }
 
+// The two-level culls' super pre-test (B3 in the FMA form, B6 in the
+// (box - o) * inv form): false only when the ray enters none of the
+// super's clusters before t_max.  A NaN end counts as entering: it arises
+// only where some cluster shares the super's bound (see the culls'
+// headers for why the test is exact).  (px, py, pz) as in slab_span.
+template <bool FMA_FORM>
+__device__ __forceinline__ bool may_enter(const float4& a, const float4& b,
+                                          float px, float py, float pz,
+                                          float ix, float iy, float iz,
+                                          float t_max) {
+  float tn, tf;
+  slab_span<FMA_FORM>(a.x, a.y, a.z, a.w, b.x, b.y, px, py, pz, ix, iy, iz,
+                      &tn, &tf);
+  if (tn != tn || tf != tf) return true;
+  return (tn <= tf) && (tf >= 0.f) && (nmax(tn, 0.f) < t_max);
+}
+
 // Woop unit-triangle test of one triangle's 13 rows q.  NESTED folds the
 // affine rows right to left (the per-group walk's order), else left to
 // right (the tiled walk's).  About 24 multiply-adds per (ray, triangle)

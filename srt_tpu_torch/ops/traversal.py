@@ -27,8 +27,10 @@ Two more walks are selectable per bounce (``walks="binned"`` / ``"pg"``):
   pairs per ray.  When the pairs overflow their static capacity the call
   takes the tiled walk instead (one host read of the pair count);
 * the **mask-scan walk** (``binned="pg"``): ``cull_gmask`` (B6) writes
-  each 8-ray group's 16-bit cluster word per super, uncompacted;
-  ``pgwalk`` (B7) scans every word and evaluates the set clusters.
+  each 8-ray group's 16-bit cluster word per super, uncompacted (its
+  kernel tests each super's box first and skips the clusters of supers no
+  ray of the group enters, with the same result); ``pgwalk`` (B7) scans
+  every word and evaluates the set clusters.
 
 Models above ``STREAM_THRESHOLD_CLUSTERS`` clusters take the streamed
 variants of the walks (B2s ``intersect_stream``, B4s ``pgwalk2_stream``):
@@ -677,6 +679,15 @@ def cull_perray_plain(rays8, sbounds):
     return _super_entries(rays8, sbounds, GROUP)
 
 
+# B5 launch shape (``csrc/cull_perray.cu``): CULL_PERRAY_LAYOUT "groups"
+# (a warp per 8-ray group, lanes over supers, CULL_PERRAY_GROUPS warps a
+# block) or "rays" (a thread per ray, a redux.sync minimum per group and
+# super).  Chosen with sweep_cull_walk.py on the binned frame's launches.
+CULL_PERRAY_LAYOUT = "groups"
+CULL_PERRAY_GROUPS = 4
+_PERRAY_LAYOUTS = {"groups": 0, "rays": 1}
+
+
 def cull_perray(rays8, sbounds, plain: bool = False):
     """B5 (replaces ``_cull_perray_kernel``, traversal_pallas.py:284)."""
     _check_group(GROUP, rays8.shape[0])
@@ -685,7 +696,8 @@ def cull_perray(rays8, sbounds, plain: bool = False):
     npad, s = rays8.shape[0], sbounds.shape[1]
     e = torch.empty((npad // GROUP, s), dtype=torch.float32,
                     device=rays8.device)
-    _launch("cull_perray", _f32(rays8), _f32(sbounds), npad, s, e)
+    _launch("cull_perray", _f32(rays8), _f32(sbounds), npad, s,
+            _PERRAY_LAYOUTS[CULL_PERRAY_LAYOUT], CULL_PERRAY_GROUPS, e)
     return e
 
 
@@ -741,9 +753,23 @@ def cull_gmask_plain(rays8, cb8, s_count: int):
     return _group_words(rays8, cb8, s_count, GROUP, fma_form=False)
 
 
-def cull_gmask(rays8, cb8, s_count: int, plain: bool = False):
-    """B6 (replaces ``_cull_gmask_kernel``, traversal_pallas.py:436)."""
+# B6 launch shape (``csrc/cull_gmask.cu``): a warp per 8-ray group,
+# CULL_GMASK_GROUPS warps a block.  Chosen with sweep_cull_walk.py on the
+# pg frame's launches.
+CULL_GMASK_GROUPS = 4
+
+
+def cull_gmask(rays8, cb8, s_count: int, sbounds, plain: bool = False):
+    """B6 (replaces ``_cull_gmask_kernel``, traversal_pallas.py:436).
+    ``sbounds`` [8, S]: the supers' boxes from the same ``model_tables``
+    call as cb8 (equal to ``super_bounds(cb8, S)``), which the kernel tests
+    before their clusters; the words equal the plain version's only when
+    each bounds its super's real cluster boxes.  The plain version does
+    not read them."""
     _check_group(GROUP, rays8.shape[0])
+    if tuple(sbounds.shape) != (8, s_count):
+        raise ValueError(f"sbounds has shape {tuple(sbounds.shape)}, need "
+                         f"(8, {s_count})")
     if plain or _on_cpu(rays8):
         return cull_gmask_plain(rays8, cb8, s_count)
     if cb8.shape[1] < s_count * SUPER:
@@ -753,8 +779,8 @@ def cull_gmask(rays8, cb8, s_count: int, plain: bool = False):
     mask = torch.empty((npad // GROUP, s_count), dtype=torch.int32,
                        device=rays8.device)
     cb8 = _f32(cb8)
-    _launch("cull_gmask", _f32(rays8), cb8, cb8.shape[1], npad, s_count,
-            mask)
+    _launch("cull_gmask", _f32(rays8), cb8, cb8.shape[1], _f32(sbounds),
+            npad, s_count, CULL_GMASK_GROUPS, mask)
     return mask
 
 
@@ -1147,7 +1173,7 @@ def model_hit(scene, b: int, origins, dirs, t_best, tile: int = DEFAULT_TILE,
         out_t, out_i = walk(clist, bits, counts, rays8, woop, group, any_hit,
                             plain)
     elif mask_scan:
-        mask = cull_gmask(rays8, cb8, s_count, plain)
+        mask = cull_gmask(rays8, cb8, s_count, sbounds, plain)
         out_t, out_i = pgwalk(mask, rays8, woop, any_hit, plain)
     elif pairs:
         out_t, out_i = _pair_walk(rays8, sbounds, cb, woop, tile, any_hit,

@@ -1,26 +1,30 @@
 #!/usr/bin/env python3
 """Time the tiled-walk cull B1 (``srt_tpu_torch/csrc/cull.cu``), the tiled
-walk B2/B2s (``csrc/intersect.cu``) and the mask-scan walk B7
-(``csrc/pgwalk.cu``) under their launch shapes on one NVIDIA GPU.
+walk B2/B2s (``csrc/intersect.cu``), the mask-scan walk B7
+(``csrc/pgwalk.cu``) and the group culls B5 (``csrc/cull_perray.cu``) and
+B6 (``csrc/cull_gmask.cu``) under their launch shapes on one NVIDIA GPU.
 
 Usage: ``python3 sweep_cull_walk.py [kernel ...]`` from the repository
-root (kernels: ``cull``, ``intersect``, ``intersect_stream``, ``pgwalk``;
-none sweeps all).  It records every B1, B2/B2s and B7 call of one
+root (kernels: ``cull``, ``intersect``, ``intersect_stream``, ``pgwalk``,
+``cull_perray``, ``cull_gmask``; none sweeps all).  It records every call
+of the swept kernels in the frames that run them (``FRAMES``): one
 headline frame, one config8 frame and one headline frame each through
 ``walks="tiled@256,binned"`` and ``"tiled@256,pg"`` (``chip_smoke.py``'s
 scenes, cameras and walks), adds the 65,536-ray cases of
 ``chip_smoke.py`` phases 3, 6a and 8a (B2 on headline primaries, B2s on
-config8 primaries, B7 on bounce and shadow rays) and its few-group B7
-cases, then times each call (``chip_smoke``'s ``device_median``: device
-time, median of 5) under each choice of its knobs: B1's rays per thread
-(``traversal.CULL_RAYS_PER_THREAD``); B2's lanes per ray, at most
-``traversal.INTERSECT_LANES``, fewer where the launch reaches
-``traversal.INTERSECT_FILL`` threads per SM (1 << 30 never limits); B7's
-groups per tile, lanes per ray (on launches that fill the card, and on
-those below ``PGWALK_FILL`` threads per SM), least chunk and work items
-per SM (``traversal.PGWALK_*``).  Every choice's output must equal the plain
-version's.  Prints one line per call and choice, and the per-frame sums
-by choice; the choice the wrappers use is marked.
+config8 primaries, B5, B6 and B7 on bounce and shadow rays) and its
+few-group cases, then times each call (``chip_smoke``'s
+``device_median``: device time, median of 5) under each choice of its
+knobs: B1's rays per thread (``traversal.CULL_RAYS_PER_THREAD``); B2's
+lanes per ray, at most ``traversal.INTERSECT_LANES``, fewer where the
+launch reaches ``traversal.INTERSECT_FILL`` threads per SM (1 << 30
+never limits); B7's groups per tile, lanes per ray (on launches that fill
+the card, and on those below ``PGWALK_FILL`` threads per SM), least chunk
+and work items per SM (``traversal.PGWALK_*``); B5's layout and groups
+per block (``CULL_PERRAY_LAYOUT``, ``CULL_PERRAY_GROUPS``); B6's groups
+per block (``CULL_GMASK_GROUPS``).  Every choice's output must equal the
+plain version's.  Prints one line per call and choice, and the per-frame
+sums by choice; the choice the wrappers use is marked.
 """
 
 from __future__ import annotations
@@ -43,7 +47,17 @@ _PGWALK = ([dict(_PG, PGWALK_GROUPS=k, PGWALK_LANES=lanes)
            + [dict(_PG, PGWALK_FILL=fill) for fill in (2048, 4096)])
 CHOICES = {"cull": [dict(CULL_RAYS_PER_THREAD=rpt) for rpt in (1, 2)],
            "intersect": _WALK, "intersect_stream": _WALK,
-           "pgwalk": _PGWALK}
+           "pgwalk": _PGWALK,
+           "cull_perray": ([dict(CULL_PERRAY_LAYOUT="groups",
+                                 CULL_PERRAY_GROUPS=g) for g in (1, 2, 4, 8)]
+                           + [dict(CULL_PERRAY_LAYOUT="rays",
+                                   CULL_PERRAY_GROUPS=4)]),
+           "cull_gmask": [dict(CULL_GMASK_GROUPS=g) for g in (1, 2, 4, 8)]}
+# The frames whose calls each kernel's sweep times.
+FRAMES = {"cull": ("headline", "config8"),
+          "intersect": ("headline", "binned"),
+          "intersect_stream": ("config8",), "pgwalk": ("pg",),
+          "cull_perray": ("binned",), "cull_gmask": ("pg",)}
 
 
 def record(plan, key):
@@ -54,8 +68,9 @@ def record(plan, key):
     return [(name, args) for name, args, _ in calls if name in CHOICES]
 
 
-def frames(dev):
-    """{label: recorded calls} of the three frames."""
+def frames(dev, labels):
+    """{label: recorded calls} of the frames named in ``labels``, and the
+    scenes."""
     from srt_tpu_torch.config import CameraConfig, RenderConfig
     from srt_tpu_torch.models.fastpath import make_render_plan
     from srt_tpu_torch.ops import rng
@@ -69,6 +84,8 @@ def frames(dev):
             ("pg", cs.HEADLINE_SPHERE, cs.HEADLINE_SIZE, 4, "pg")):
         if sphere not in scenes:
             scenes[sphere] = cs.build_scene(dev, *sphere)[0]
+        if label not in labels:
+            continue
         scene = scenes[sphere]
         cam = CameraConfig(width=size, height=size, **cs.HEADLINE_CAMERA)
         cfg = RenderConfig(max_depth=depth, rr_bounces=0, spp=1)
@@ -81,14 +98,14 @@ def frames(dev):
 
 
 def cases(scenes):
-    """The 65,536-ray cases and the few-group B7 cases as recorded
-    calls."""
+    """The 65,536-ray cases and the few-group B5, B6 and B7 cases as
+    recorded calls."""
     import torch
 
     from srt_tpu_torch.ops import traversal as tr
     out = []
     scene = scenes[cs.HEADLINE_SPHERE]
-    woop, _, _, cb8, s_count, _ = tr.model_tables(scene, 0)
+    woop, _, sbounds, cb8, s_count, _ = tr.model_tables(scene, 0)
     _, bounce8, shadow8 = cs.walk_rays(scene)
     idx = torch.arange(cs.FEW_GROUP_RAYS, device=bounce8.device)
     live = torch.isin(idx // tr.GROUP, torch.tensor(cs.FEW_LIVE_GROUPS,
@@ -97,8 +114,12 @@ def cases(scenes):
         r8 = rays8[:cs.FEW_GROUP_RAYS].clone()
         r8[~live, 6] = 0.0
         for r in (r8, rays8):
-            out.append(("pgwalk", dict(mask=tr.cull_gmask(r, cb8, s_count),
-                                       rays8=r, woop=woop, any_hit=any_hit)))
+            mask = tr.cull_gmask(r, cb8, s_count, sbounds)
+            out.append(("pgwalk", dict(mask=mask, rays8=r, woop=woop,
+                                       any_hit=any_hit)))
+            out.append(("cull_perray", dict(rays8=r, sbounds=sbounds)))
+            out.append(("cull_gmask", dict(rays8=r, cb8=cb8, s_count=s_count,
+                                           sbounds=sbounds)))
     for sphere, name in ((cs.HEADLINE_SPHERE, "intersect"),
                          (cs.CONFIG8_SPHERE, "intersect_stream")):
         scene = scenes[sphere]
@@ -123,9 +144,9 @@ def main() -> int:
     card = cs.card_line()
     print(card, flush=True)
     dev = torch.device("cuda", 0)
-    calls, scenes = frames(dev)
-    calls["cases"] = cases(scenes)
     only = set(sys.argv[1:]) or set(CHOICES)
+    calls, scenes = frames(dev, {f for k in only for f in FRAMES[k]})
+    calls["cases"] = cases(scenes)
     sums, marks = {}, {}
     for label, recorded in calls.items():
         for k, (name, args) in enumerate(recorded):
@@ -133,17 +154,19 @@ def main() -> int:
                 continue
             fn = getattr(tr, name)
             args = {a: v for a, v in args.items() if a != "plain"}
-            ref = fn(**args, plain=True)
+            ref = cs.as_tuple(fn(**args, plain=True))
             rays8 = args["rays8"]
             default = {knob: getattr(tr, knob) for knob in CHOICES[name][0]}
             head = (f"{label} call {k} {name}: {rays8.shape[0]} rays "
                     f"({int((rays8[:, 6] > 0).sum())} live), "
                     + (f"tile {args['tile']}" if "tile" in args else
-                       f"{cs.popcount(args['mask'])} set bits"))
+                       f"{cs.popcount(args['mask'])} set bits"
+                       if "mask" in args else
+                       f"S={args['sbounds'].shape[1]}"))
             for choice in CHOICES[name]:
                 for knob, value in choice.items():
                     setattr(tr, knob, value)
-                out = fn(**args)
+                out = cs.as_tuple(fn(**args))
                 ms = cs.device_median(lambda: fn(**args))[0]
                 text = ", ".join(f"{a}={v}" for a, v in choice.items())
                 cs.check(all(torch.equal(a, b) for a, b in zip(out, ref)),

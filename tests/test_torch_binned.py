@@ -89,7 +89,7 @@ def test_cull_gmask_matches_pallas(scenes, mixed):
     op = operands(scenes[1], 11, mixed, False)
     ref = jax_tp._launch_cull_gmask(j(op["rays8"]), j(op["cb8_j"]),
                                     j(op["w_bp"]), TILE, True)
-    got = tr.cull_gmask(op["rays8"], op["cb8"], op["s"])
+    got = tr.cull_gmask(op["rays8"], op["cb8"], op["s"], op["sbounds"])
     assert (got != 0).any() and (got == 0).any()
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
