@@ -834,6 +834,8 @@ def replay_frame(tag, plan, cases, key):
     events around one call, median of 5) beside its bound; prints the
     per-frame sums by kernel and returns the set of kernels launched."""
     import torch
+
+    from srt_tpu_torch.ops import traversal as tr
     with recorded_launches() as calls:
         plan.render(key)
     torch.cuda.synchronize()
@@ -862,9 +864,13 @@ def replay_frame(tag, plan, cases, key):
             elif name == "cull_pg2":
                 mode += f", {rays8.shape[0] // args['group']} groups"
             elif name in ("cull_perray", "cull_gmask"):
+                n_groups = rays8.shape[0] // 8
                 live_groups = int((rays8[:, 6] > 0).view(-1, 8).any(1).sum())
-                mode += (f", {rays8.shape[0] // 8} groups ({live_groups} "
-                         f"live), S={args['sbounds'].shape[1]}")
+                gpw = tr.group_cull_shape(n_groups, torch.cuda.
+                                          get_device_properties(rays8.device)
+                                          .multi_processor_count)[0]
+                mode += (f", {n_groups} groups ({live_groups} live), "
+                         f"S={args['sbounds'].shape[1]}, {gpw} a warp")
             elif name == "cull":
                 mode += f", S={args['sbounds'].shape[1]}"
             elif name == "pgwalk":

@@ -18,13 +18,15 @@
 // eight storing S scattered words) back, and what this one does:
 //
 // 1. Every ray tested every cluster, though bounce and shadow rays enter
-//    few supers.  Now a warp takes one group: lanes 0-7 load its rays and
-//    their IEEE reciprocals once and share them through shared memory,
-//    and each lane tests all 8 of them as independent chains, with no
-//    branch (a dead ray passes no cluster test; its super test is masked
-//    by its liveness).  Per 32 supers, lane j pre-tests super s0 + j
-//    (sbounds, may_enter<false>) and a ballot gives the supers the group
-//    may enter; only those get cluster tests.
+//    few supers.  Now a warp takes gpw consecutive groups (1, 2 or 4:
+//    traversal.group_cull_shape), each lane loads one of their rays and
+//    its IEEE reciprocals once into shared memory, and the warp culls the
+//    groups one after the other, the group's 8 rays in registers, tested
+//    as independent chains with no branch (a dead ray passes no cluster
+//    test; its super test is masked by its liveness).  Per 32 supers,
+//    lane j pre-tests super s0 + j (sbounds, may_enter<false>) and a
+//    ballot gives the supers the group may enter; only those get cluster
+//    tests.
 // 2. The group OR was a shuffle chain per super.  Now each lane tests one
 //    cluster against all of the group's rays, so the OR is the
 //    lane's own; the two halves of the warp take two entered supers at a
@@ -38,9 +40,10 @@
 //    lane a different cluster, consecutive lanes consecutive clusters,
 //    so each load is two 64-byte segments), not staged: a block holds
 //    only a few groups, and the headline's 25 KB table stays in L1.
-// 5. Few rays filled few SMs.  A block is CULL_GMASK_GROUPS warps
-//    (traversal.py), so a 4,096-ray launch of 512 groups spreads over
-//    the card.
+// 5. Few rays filled few SMs.  Launches of few groups take one group a
+//    warp, so a 4,096-ray launch is 512 warps over the card and its few
+//    live groups run side by side; large ones take four, whose rays load
+//    together.
 //
 // Why the pre-test is exact in this form.  Rounding of box - o is
 // monotone in the box bound, multiplying by a fixed inv keeps or reverses
@@ -58,80 +61,95 @@ namespace {
 using namespace srt;
 
 constexpr int GROUP = 8;
-constexpr int MAX_GROUPS = 16;  // warps a block, at most
+constexpr int MAX_WARPS = 16;  // warps a block, at most
 
-__global__ void __launch_bounds__(32 * MAX_GROUPS)
+// REG_RAYS: the group's rays in registers, else read from shared memory
+// at each test.
+template <bool REG_RAYS>
+__global__ void __launch_bounds__(32 * MAX_WARPS)
     cull_gmask_kernel(const float* __restrict__ rays8,
                       const float* __restrict__ cb8, int stride,
                       const float* __restrict__ sb, int n_groups, int S,
-                      int* __restrict__ mask) {
-  extern __shared__ float4 ray_sh[];  // [warps][GROUP][2]
+                      int gpw, int* __restrict__ mask) {
+  extern __shared__ float4 ray_sh[];  // [warps][32 rays][2]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const size_t g = (size_t)blockIdx.x * (blockDim.x >> 5) + warp;
-  if (g >= (size_t)n_groups) return;  // warp-uniform; no block barrier
-  int* row = mask + g * S;
-  float4* rs = ray_sh + warp * 2 * GROUP;
+  const size_t g0 = ((size_t)blockIdx.x * (blockDim.x >> 5) + warp) * gpw;
+  if (g0 >= (size_t)n_groups) return;  // warp-uniform; no block barrier
+  const int ng = (int)min((size_t)gpw, (size_t)n_groups - g0);
+  float4* rs = ray_sh + warp * 2 * 32;
   bool lane_live = false;
-  if (lane < GROUP) {
-    const Ray r = load_ray(rays8, g * GROUP + lane);
+  if (lane < ng * GROUP) {
+    const Ray r = load_ray(rays8, g0 * GROUP + lane);
     lane_live = r.t_max > 0.f;
     rs[2 * lane] = make_float4(r.ox, r.oy, r.oz, r.t_max);
     rs[2 * lane + 1] = make_float4(1.f / r.dx, 1.f / r.dy, 1.f / r.dz, 0.f);
   }
-  const unsigned live = __ballot_sync(FULL, lane_live);
-  if (!live) {
-    for (int s = lane; s < S; s += 32) row[s] = 0;
-    return;
-  }
+  const unsigned live_all = __ballot_sync(FULL, lane_live);
   __syncwarp();
-  float4 o[GROUP], iv[GROUP];  // (origin, t_max), reciprocals
-#pragma unroll
-  for (int k = 0; k < GROUP; ++k) {
-    o[k] = rs[2 * k];
-    iv[k] = rs[2 * k + 1];
-  }
 
-  for (int s0 = 0; s0 < S; s0 += 32) {
-    const int s = s0 + lane;
-    bool enter = false;
-    if (s < S) {
-      const float4 a = make_float4(sb[s], sb[S + s], sb[2 * S + s],
-                                   sb[3 * S + s]);
-      const float4 b = make_float4(sb[4 * S + s], sb[5 * S + s], 0.f, 0.f);
-#pragma unroll
-      for (int k = 0; k < GROUP; ++k)
-        enter |= ((live >> k) & 1u) &&
-                 may_enter<false>(a, b, o[k].x, o[k].y, o[k].z, iv[k].x,
-                                  iv[k].y, iv[k].z, o[k].w);
+  for (int gl = 0; gl < ng; ++gl) {  // warp-uniform
+    int* row = mask + (g0 + gl) * S;
+    const unsigned live = (live_all >> (GROUP * gl)) & 0xffu;
+    if (!live) {
+      for (int s = lane; s < S; s += 32) row[s] = 0;
+      continue;
     }
-    unsigned todo = __ballot_sync(FULL, enter);
-    unsigned word = 0;
-    while (todo) {  // warp-uniform
-      const int ja = __ffs(todo) - 1;
-      todo &= todo - 1;
-      const int jb = todo ? __ffs(todo) - 1 : -1;
-      todo &= todo - 1;
-      const int j = lane < 16 ? ja : jb;
-      bool occ = false;
-      if (j >= 0) {
-        const int c = (s0 + j) * SUPER + (lane & 15);
-        const float lx = __ldg(cb8 + c), ly = __ldg(cb8 + stride + c),
-                    lz = __ldg(cb8 + 2 * stride + c),
-                    hx = __ldg(cb8 + 3 * stride + c),
-                    hy = __ldg(cb8 + 4 * stride + c),
-                    hz = __ldg(cb8 + 5 * stride + c);
+    const float4* r = rs + 2 * GROUP * gl;
+    float4 o[GROUP], iv[GROUP];  // (origin, t_max), reciprocals
+    if (REG_RAYS) {
+#pragma unroll
+      for (int k = 0; k < GROUP; ++k) {
+        o[k] = r[2 * k];
+        iv[k] = r[2 * k + 1];
+      }
+    }
+    for (int s0 = 0; s0 < S; s0 += 32) {
+      const int s = s0 + lane;
+      bool enter = false;
+      if (s < S) {
+        const float4 a = make_float4(sb[s], sb[S + s], sb[2 * S + s],
+                                     sb[3 * S + s]);
+        const float4 b = make_float4(sb[4 * S + s], sb[5 * S + s], 0.f, 0.f);
 #pragma unroll
         for (int k = 0; k < GROUP; ++k) {
-          float sel;  // a dead ray (t_max <= 0) passes no test
-          occ |= slab<false>(lx, ly, lz, hx, hy, hz, o[k].x, o[k].y, o[k].z,
-                             iv[k].x, iv[k].y, iv[k].z, o[k].w, &sel);
+          const float4 ok = REG_RAYS ? o[k] : r[2 * k];
+          const float4 ik = REG_RAYS ? iv[k] : r[2 * k + 1];
+          enter |= ((live >> k) & 1u) &&
+                   may_enter<false>(a, b, ok.x, ok.y, ok.z, ik.x, ik.y, ik.z,
+                                    ok.w);
         }
       }
-      const unsigned w = __ballot_sync(FULL, occ);
-      if (lane == ja) word = w & 0xffffu;
-      if (lane == jb) word = w >> 16;
+      unsigned todo = __ballot_sync(FULL, enter);
+      unsigned word = 0;
+      while (todo) {  // warp-uniform
+        const int ja = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const int jb = todo ? __ffs(todo) - 1 : -1;
+        todo &= todo - 1;
+        const int j = lane < 16 ? ja : jb;
+        bool occ = false;
+        if (j >= 0) {
+          const int c = (s0 + j) * SUPER + (lane & 15);
+          const float lx = __ldg(cb8 + c), ly = __ldg(cb8 + stride + c),
+                      lz = __ldg(cb8 + 2 * stride + c),
+                      hx = __ldg(cb8 + 3 * stride + c),
+                      hy = __ldg(cb8 + 4 * stride + c),
+                      hz = __ldg(cb8 + 5 * stride + c);
+#pragma unroll
+          for (int k = 0; k < GROUP; ++k) {
+            const float4 ok = REG_RAYS ? o[k] : r[2 * k];
+            const float4 ik = REG_RAYS ? iv[k] : r[2 * k + 1];
+            float sel;  // a dead ray (t_max <= 0) passes no test
+            occ |= slab<false>(lx, ly, lz, hx, hy, hz, ok.x, ok.y, ok.z, ik.x,
+                               ik.y, ik.z, ok.w, &sel);
+          }
+        }
+        const unsigned w = __ballot_sync(FULL, occ);
+        if (lane == ja) word = w & 0xffffu;
+        if (lane == jb) word = w >> 16;
+      }
+      if (s < S) row[s] = (int)word;
     }
-    if (s < S) row[s] = (int)word;
   }
 }
 
@@ -139,16 +157,19 @@ __global__ void __launch_bounds__(32 * MAX_GROUPS)
 
 extern "C" int srt_cull_gmask(const float* rays8, const float* cb8,
                               int stride, const float* sbounds, int n_rays,
-                              int S, int groups_per_block, int* mask,
-                              void* stream) {
-  if (groups_per_block < 1 || groups_per_block > MAX_GROUPS)
+                              int S, int groups_per_warp, int warps_per_block,
+                              int reg_rays, int* mask, void* stream) {
+  if (groups_per_warp < 1 || groups_per_warp > 32 / GROUP ||
+      warps_per_block < 1 || warps_per_block > MAX_WARPS)
     return (int)cudaErrorInvalidValue;
   const int n_groups = n_rays / GROUP;
-  const int grid = (n_groups + groups_per_block - 1) / groups_per_block;
-  const size_t smem = (size_t)groups_per_block * 2 * GROUP * sizeof(float4);
+  const int n_warps = (n_groups + groups_per_warp - 1) / groups_per_warp;
+  const int grid = (n_warps + warps_per_block - 1) / warps_per_block;
+  const size_t smem = (size_t)warps_per_block * 2 * 32 * sizeof(float4);
+  const auto kernel =
+      reg_rays ? cull_gmask_kernel<true> : cull_gmask_kernel<false>;
   if (grid > 0 && S > 0)
-    cull_gmask_kernel<<<grid, 32 * groups_per_block, smem,
-                        (cudaStream_t)stream>>>(rays8, cb8, stride, sbounds,
-                                                n_groups, S, mask);
+    kernel<<<grid, 32 * warps_per_block, smem, (cudaStream_t)stream>>>(
+        rays8, cb8, stride, sbounds, n_groups, S, groups_per_warp, mask);
   return (int)cudaGetLastError();
 }

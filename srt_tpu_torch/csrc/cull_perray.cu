@@ -9,29 +9,31 @@
 //
 // What bounds it: S slab tests (~26 operations each) per live ray against
 // the rays read and 4 bytes written per group and super: at the
-// headline's S = 50 the bytes, on paper.  What held the first design (one
-// thread per ray, a three-step shuffle-and-fminf chain per super, one lane
-// in eight storing S scattered floats, and 16 blocks on 132 SMs for a
-// 4,096-ray launch) back; two layouts replace it (``layout``):
+// headline's S = 50 the bytes, on paper; -fmad=false and 30-odd
+// instructions a test make it issue-bound in practice.  What held the
+// first design (one thread per ray, a three-step shuffle-and-fminf chain
+// per super, one lane in eight storing S scattered floats, and 16 blocks
+// on 132 SMs for a 4,096-ray launch) back, and what this one does:
 //
-// 0. A warp per group ("groups"): lanes 0-7 load the group's rays and
-//    their IEEE reciprocals once and share them through shared memory;
-//    lane j takes super s0 + j (per 32 supers), tests the group's 8 rays
-//    as independent chains with no branch (a dead ray passes no test),
-//    keeps the minimum in a register and stores it beside its
-//    neighbours: a group's row is 32 consecutive floats at a time, a
-//    block's rows one span.  A 4,096-ray launch is 512 warps,
-//    CULL_PERRAY_GROUPS to a block (traversal.py).
-// 1. A thread per ray ("rays"): boxes staged in shared memory as two
-//    float4 a super; per super, the group minimum is one redux.sync
-//    (__reduce_min_sync over the group's 8-lane mask) on the entry's
-//    float bits, which order like the floats because a passing entry is
-//    +0 or positive (nmax(-0, +0) gives +0) and BIG's bits order above
-//    every passing entry below it; the minima go to shared memory and the
-//    block stores its rows' span with consecutive stores.
+// 1. A thread per (group, super) item, no reduction: a warp takes gpw
+//    consecutive groups (1, 2 or 4: traversal.group_cull_shape), each lane
+//    loads one of their rays and its IEEE reciprocals once into shared
+//    memory, and lane i takes items i, i + 32, ... of the warp's gpw * S
+//    (group-major, so consecutive lanes hold consecutive supers).  An item
+//    reads its group's 8 rays from shared memory (broadcasts), tests them
+//    as independent chains with no branch (a dead ray passes no test) and
+//    keeps the minimum in a register.  (A thread per ray with one
+//    redux.sync minimum per group and super was slower on every launch
+//    of the binned frame; PERF.md.)
+// 2. Scattered stores: item i of the warp is float i of its groups' rows,
+//    so each store instruction covers 32 consecutive floats and a block's
+//    rows are one span.
+// 3. Few rays filled few SMs: launches of few groups take one group a
+//    warp, so a 4,096-ray launch is 512 warps over the card; large ones
+//    take four, whose rays load together.
 //
-// Groups or warps whose rays are all dead skip the slab tests and store
-// BIG, the same result (the TPU skips all-dead tile rows).
+// Groups whose rays are all dead skip the slab tests and store BIG, the
+// same result (the TPU skips all-dead tile rows).
 #include "traversal_common.cuh"
 
 namespace {
@@ -39,126 +41,65 @@ namespace {
 using namespace srt;
 
 constexpr int GROUP = 8;
-constexpr int MAX_GROUPS = 16;  // layout 0: warps a block, at most
-constexpr int RAY_BLOCK = 256;  // layout 1: rays per block
-constexpr int CHUNK = 64;       // layout 1: supers staged per pass
+constexpr int MAX_WARPS = 16;  // warps a block, at most
 
-__global__ void __launch_bounds__(32 * MAX_GROUPS)
-    cull_perray_groups(const float* __restrict__ rays8,
+__global__ void __launch_bounds__(32 * MAX_WARPS)
+    cull_perray_kernel(const float* __restrict__ rays8,
                        const float* __restrict__ sb, int n_groups, int S,
-                       float* __restrict__ e) {
-  extern __shared__ float4 ray_sh[];  // [warps][GROUP][2]
+                       int gpw, float* __restrict__ e) {
+  extern __shared__ float4 ray_sh[];  // [warps][32 rays][2]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const size_t g = (size_t)blockIdx.x * (blockDim.x >> 5) + warp;
-  if (g >= (size_t)n_groups) return;  // warp-uniform; no block barrier
-  float* row = e + g * S;
-  float4* rs = ray_sh + warp * 2 * GROUP;
+  const size_t g0 = ((size_t)blockIdx.x * (blockDim.x >> 5) + warp) * gpw;
+  if (g0 >= (size_t)n_groups) return;  // warp-uniform; no block barrier
+  const int ng = (int)min((size_t)gpw, (size_t)n_groups - g0);
+  float4* rs = ray_sh + warp * 2 * 32;
   bool lane_live = false;
-  if (lane < GROUP) {
-    const Ray r = load_ray(rays8, g * GROUP + lane);
+  if (lane < ng * GROUP) {
+    const Ray r = load_ray(rays8, g0 * GROUP + lane);
     lane_live = r.t_max > 0.f;
     rs[2 * lane] = make_float4(r.ox, r.oy, r.oz, r.t_max);
     rs[2 * lane + 1] = make_float4(1.f / r.dx, 1.f / r.dy, 1.f / r.dz, 0.f);
   }
   const unsigned live = __ballot_sync(FULL, lane_live);
-  if (!live) {
-    for (int s = lane; s < S; s += 32) row[s] = BIG;
-    return;
-  }
   __syncwarp();
-  float4 o[GROUP], iv[GROUP];  // (origin, t_max), reciprocals
-#pragma unroll
-  for (int k = 0; k < GROUP; ++k) {
-    o[k] = rs[2 * k];
-    iv[k] = rs[2 * k + 1];
-  }
-  for (int s = lane; s < S; s += 32) {
-    const float lx = sb[s], ly = sb[S + s], lz = sb[2 * S + s],
-                hx = sb[3 * S + s], hy = sb[4 * S + s], hz = sb[5 * S + s];
-    float v = BIG;
-#pragma unroll
-    for (int k = 0; k < GROUP; ++k) {
-      float sel;  // a dead ray (t_max <= 0) passes no test
-      if (slab<false>(lx, ly, lz, hx, hy, hz, o[k].x, o[k].y, o[k].z, iv[k].x,
-                      iv[k].y, iv[k].z, o[k].w, &sel))
-        v = fminf(v, sel);
-    }
-    row[s] = v;
-  }
-}
-
-__global__ void __launch_bounds__(RAY_BLOCK)
-    cull_perray_rays(const float* __restrict__ rays8,
-                     const float* __restrict__ sb, int n_rays, int S,
-                     float* __restrict__ e) {
-  __shared__ float4 box[2 * CHUNK];
-  __shared__ unsigned emin[RAY_BLOCK / GROUP][CHUNK];
-  const int tid = threadIdx.x, lane = tid & 31;
-  const size_t ray = (size_t)blockIdx.x * RAY_BLOCK + tid;
-  const size_t g0 = (size_t)blockIdx.x * (RAY_BLOCK / GROUP);
-  const int ng = (int)min((size_t)(RAY_BLOCK / GROUP),
-                          (size_t)n_rays / GROUP - g0);
-  Ray r = {0.f, 0.f, 0.f, 1.f, 1.f, 1.f, 0.f, 0.f};
-  if (ray < (size_t)n_rays) r = load_ray(rays8, ray);
-  const float ix = 1.f / r.dx, iy = 1.f / r.dy, iz = 1.f / r.dz;
-  const bool live = __any_sync(FULL, r.t_max > 0.f);  // warp-uniform
-  const unsigned gmask = 0xffu << (lane & ~(GROUP - 1));
-  const unsigned big_bits = __float_as_uint(BIG);
   float* out = e + g0 * S;
-
-  for (int s0 = 0; s0 < S; s0 += CHUNK) {
-    const int len = min(CHUNK, S - s0);
-    __syncthreads();  // the previous chunk's reads are done
-    for (int i = tid; i < len; i += RAY_BLOCK) {
-      const int s = s0 + i;
-      box[2 * i] = make_float4(sb[s], sb[S + s], sb[2 * S + s],
-                               sb[3 * S + s]);
-      box[2 * i + 1] = make_float4(sb[4 * S + s], sb[5 * S + s], 0.f, 0.f);
-    }
-    __syncthreads();
-    for (int k = 0; k < len; ++k) {
-      unsigned v = big_bits;
-      if (live) {
-        const float4 a = box[2 * k], b = box[2 * k + 1];
-        float sel;
-        if (slab<false>(a.x, a.y, a.z, a.w, b.x, b.y, r.ox, r.oy, r.oz, ix,
-                        iy, iz, r.t_max, &sel))
-          v = __float_as_uint(sel);
-        v = __reduce_min_sync(gmask, v);
+  // Item i = gl * S + s: lane's first item, then 32 on.
+  int gl = lane / S, s = lane - gl * S;
+  for (int i = lane; gl < ng; i += 32) {
+    float v = BIG;
+    if ((live >> (GROUP * gl)) & 0xffu) {
+      const float lx = sb[s], ly = sb[S + s], lz = sb[2 * S + s],
+                  hx = sb[3 * S + s], hy = sb[4 * S + s], hz = sb[5 * S + s];
+      const float4* r = rs + 2 * GROUP * gl;
+#pragma unroll
+      for (int k = 0; k < GROUP; ++k) {
+        const float4 o = r[2 * k], iv = r[2 * k + 1];
+        float sel;  // a dead ray (t_max <= 0) passes no test
+        if (slab<false>(lx, ly, lz, hx, hy, hz, o.x, o.y, o.z, iv.x, iv.y,
+                        iv.z, o.w, &sel))
+          v = fminf(v, sel);
       }
-      if ((tid & (GROUP - 1)) == 0) emin[tid / GROUP][k] = v;
     }
-    __syncthreads();
-    for (int q = tid; q < ng * len; q += RAY_BLOCK) {
-      const int gq = q / len, k = q - gq * len;
-      out[(size_t)gq * S + s0 + k] = __uint_as_float(emin[gq][k]);
-    }
+    out[i] = v;
+    for (s += 32; s >= S; s -= S) ++gl;
   }
 }
 
 }  // namespace
 
 extern "C" int srt_cull_perray(const float* rays8, const float* sbounds,
-                               int n_rays, int S, int layout,
-                               int groups_per_block, float* e,
-                               void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  const int n_groups = n_rays / GROUP;
-  if (n_groups <= 0 || S <= 0) return (int)cudaGetLastError();
-  if (layout == 0) {
-    if (groups_per_block < 1 || groups_per_block > MAX_GROUPS)
-      return (int)cudaErrorInvalidValue;
-    const int grid = (n_groups + groups_per_block - 1) / groups_per_block;
-    const size_t smem =
-        (size_t)groups_per_block * 2 * GROUP * sizeof(float4);
-    cull_perray_groups<<<grid, 32 * groups_per_block, smem, st>>>(
-        rays8, sbounds, n_groups, S, e);
-  } else if (layout == 1) {
-    const int grid = (n_rays + RAY_BLOCK - 1) / RAY_BLOCK;
-    cull_perray_rays<<<grid, RAY_BLOCK, 0, st>>>(rays8, sbounds, n_rays, S,
-                                                 e);
-  } else {
+                               int n_rays, int S, int groups_per_warp,
+                               int warps_per_block, float* e, void* stream) {
+  if (groups_per_warp < 1 || groups_per_warp > 32 / GROUP ||
+      warps_per_block < 1 || warps_per_block > MAX_WARPS)
     return (int)cudaErrorInvalidValue;
-  }
+  const int n_groups = n_rays / GROUP;
+  const int n_warps = (n_groups + groups_per_warp - 1) / groups_per_warp;
+  const int grid = (n_warps + warps_per_block - 1) / warps_per_block;
+  const size_t smem = (size_t)warps_per_block * 2 * 32 * sizeof(float4);
+  if (grid > 0 && S > 0)
+    cull_perray_kernel<<<grid, 32 * warps_per_block, smem,
+                         (cudaStream_t)stream>>>(rays8, sbounds, n_groups, S,
+                                                 groups_per_warp, e);
   return (int)cudaGetLastError();
 }

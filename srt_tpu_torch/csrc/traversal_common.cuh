@@ -89,7 +89,10 @@ __device__ __forceinline__ void slab_span(float lx, float ly, float lz,
 
 // Slab test, entry bound max(t_near, 0) (not exit-if-inside: a box entered
 // from inside can still hold candidates nearer than its exit).  *sel is +0
-// or positive when the test passes (nmax(-0, +0) returns +0).
+// or positive when the test passes (nmax(-0, +0) returns +0).  The plain
+// versions' t_near <= t_far && t_far >= 0 && sel < bound, in two compares:
+// sel <= t_far holds exactly when both of the first two do, and a NaN end
+// fails both forms.
 template <bool FMA_FORM>
 __device__ __forceinline__ bool slab(float lx, float ly, float lz, float hx,
                                      float hy, float hz, float px, float py,
@@ -99,7 +102,7 @@ __device__ __forceinline__ bool slab(float lx, float ly, float lz, float hx,
   slab_span<FMA_FORM>(lx, ly, lz, hx, hy, hz, px, py, pz, ix, iy, iz,
                       &t_near, &t_far);
   *sel = nmax(t_near, 0.f);
-  return (t_near <= t_far) && (t_far >= 0.f) && (*sel < bound);
+  return (*sel <= t_far) && (*sel < bound);
 }
 
 // The two-level culls' super pre-test (B3 in the FMA form, B6 in the
@@ -115,8 +118,8 @@ __device__ __forceinline__ bool may_enter(const float4& a, const float4& b,
   float tn, tf;
   slab_span<FMA_FORM>(a.x, a.y, a.z, a.w, b.x, b.y, px, py, pz, ix, iy, iz,
                       &tn, &tf);
-  if (tn != tn || tf != tf) return true;
-  return (tn <= tf) && (tf >= 0.f) && (nmax(tn, 0.f) < t_max);
+  const float sel = nmax(tn, 0.f);
+  return (tn != tn) || (tf != tf) || ((sel <= tf) && (sel < t_max));
 }
 
 // Woop unit-triangle test of one triangle's 13 rows q.  NESTED folds the

@@ -679,13 +679,22 @@ def cull_perray_plain(rays8, sbounds):
     return _super_entries(rays8, sbounds, GROUP)
 
 
-# B5 launch shape (``csrc/cull_perray.cu``): CULL_PERRAY_LAYOUT "groups"
-# (a warp per 8-ray group, lanes over supers, CULL_PERRAY_GROUPS warps a
-# block) or "rays" (a thread per ray, a redux.sync minimum per group and
-# super).  Chosen with sweep_cull_walk.py on the binned frame's launches.
-CULL_PERRAY_LAYOUT = "groups"
-CULL_PERRAY_GROUPS = 4
-_PERRAY_LAYOUTS = {"groups": 0, "rays": 1}
+# B5/B6 launch shape (``csrc/cull_perray.cu``, ``csrc/cull_gmask.cu``): a
+# warp takes CULL_WARP_GROUPS consecutive 8-ray groups, or one on launches
+# of fewer than CULL_FILL groups per SM (so that the few live groups of a
+# small launch run side by side); CULL_BLOCK_WARPS warps a block.  Chosen
+# with sweep_cull_walk.py on the binned and pg frames' launches.
+CULL_WARP_GROUPS = 4
+CULL_FILL = 128
+CULL_BLOCK_WARPS = 4
+CULL_GMASK_REG_RAYS = True
+
+
+def group_cull_shape(n_groups: int, sms: int):
+    """(groups per warp, warps per block) of a B5 or B6 launch of
+    ``n_groups`` 8-ray groups on a card of ``sms`` SMs."""
+    gpw = CULL_WARP_GROUPS if n_groups >= sms * CULL_FILL else 1
+    return gpw, CULL_BLOCK_WARPS
 
 
 def cull_perray(rays8, sbounds, plain: bool = False):
@@ -697,7 +706,7 @@ def cull_perray(rays8, sbounds, plain: bool = False):
     e = torch.empty((npad // GROUP, s), dtype=torch.float32,
                     device=rays8.device)
     _launch("cull_perray", _f32(rays8), _f32(sbounds), npad, s,
-            _PERRAY_LAYOUTS[CULL_PERRAY_LAYOUT], CULL_PERRAY_GROUPS, e)
+            *group_cull_shape(npad // GROUP, _sm_count(rays8.device)), e)
     return e
 
 
@@ -753,12 +762,6 @@ def cull_gmask_plain(rays8, cb8, s_count: int):
     return _group_words(rays8, cb8, s_count, GROUP, fma_form=False)
 
 
-# B6 launch shape (``csrc/cull_gmask.cu``): a warp per 8-ray group,
-# CULL_GMASK_GROUPS warps a block.  Chosen with sweep_cull_walk.py on the
-# pg frame's launches.
-CULL_GMASK_GROUPS = 4
-
-
 def cull_gmask(rays8, cb8, s_count: int, sbounds, plain: bool = False):
     """B6 (replaces ``_cull_gmask_kernel``, traversal_pallas.py:436).
     ``sbounds`` [8, S]: the supers' boxes from the same ``model_tables``
@@ -780,7 +783,9 @@ def cull_gmask(rays8, cb8, s_count: int, sbounds, plain: bool = False):
                        device=rays8.device)
     cb8 = _f32(cb8)
     _launch("cull_gmask", _f32(rays8), cb8, cb8.shape[1], _f32(sbounds),
-            npad, s_count, CULL_GMASK_GROUPS, mask)
+            npad, s_count,
+            *group_cull_shape(npad // GROUP, _sm_count(rays8.device)),
+            int(CULL_GMASK_REG_RAYS), mask)
     return mask
 
 

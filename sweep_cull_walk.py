@@ -20,11 +20,12 @@ lanes per ray, at most ``traversal.INTERSECT_LANES``, fewer where the
 launch reaches ``traversal.INTERSECT_FILL`` threads per SM (1 << 30
 never limits); B7's groups per tile, lanes per ray (on launches that fill
 the card, and on those below ``PGWALK_FILL`` threads per SM), least chunk
-and work items per SM (``traversal.PGWALK_*``); B5's layout and groups
-per block (``CULL_PERRAY_LAYOUT``, ``CULL_PERRAY_GROUPS``); B6's groups
-per block (``CULL_GMASK_GROUPS``).  Every choice's output must equal the
-plain version's.  Prints one line per call and choice, and the per-frame
-sums by choice; the choice the wrappers use is marked.
+and work items per SM (``traversal.PGWALK_*``); B5's and B6's groups per
+warp, the launch size below which a warp takes one group, and warps per
+block (``CULL_WARP_GROUPS``, ``CULL_FILL``, ``CULL_BLOCK_WARPS``).  Every
+choice's output must equal the plain version's.  Prints one line per
+call and choice, and the per-frame sums by choice; the choice the
+wrappers use is marked.
 """
 
 from __future__ import annotations
@@ -45,14 +46,17 @@ _PGWALK = ([dict(_PG, PGWALK_GROUPS=k, PGWALK_LANES=lanes)
               for few in (4, 8, 16) for chunk in (2, 4, 8) for items in (4, 16)
               if (few, chunk, items) != (8, 2, 16)]
            + [dict(_PG, PGWALK_FILL=fill) for fill in (2048, 4096)])
+_GC = dict(CULL_WARP_GROUPS=4, CULL_FILL=128, CULL_BLOCK_WARPS=4)
+_GROUP_CULL = ([dict(_GC, CULL_WARP_GROUPS=gpw) for gpw in (4, 1, 2)]
+               + [dict(_GC, CULL_FILL=fill) for fill in (32, 512)]
+               + [dict(_GC, CULL_BLOCK_WARPS=w) for w in (2, 8)])
 CHOICES = {"cull": [dict(CULL_RAYS_PER_THREAD=rpt) for rpt in (1, 2)],
            "intersect": _WALK, "intersect_stream": _WALK,
            "pgwalk": _PGWALK,
-           "cull_perray": ([dict(CULL_PERRAY_LAYOUT="groups",
-                                 CULL_PERRAY_GROUPS=g) for g in (1, 2, 4, 8)]
-                           + [dict(CULL_PERRAY_LAYOUT="rays",
-                                   CULL_PERRAY_GROUPS=4)]),
-           "cull_gmask": [dict(CULL_GMASK_GROUPS=g) for g in (1, 2, 4, 8)]}
+           "cull_perray": _GROUP_CULL,
+           "cull_gmask": ([dict(_GC, CULL_GMASK_REG_RAYS=True)]
+                          + [dict(_GC, CULL_GMASK_REG_RAYS=False,
+                                  CULL_WARP_GROUPS=gpw) for gpw in (1, 4)])}
 # The frames whose calls each kernel's sweep times.
 FRAMES = {"cull": ("headline", "config8"),
           "intersect": ("headline", "binned"),

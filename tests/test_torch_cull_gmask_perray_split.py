@@ -5,25 +5,26 @@ Each kernel's order of work is written out here as a plain PyTorch twin
 and held against the port's plain version and the interpret-mode Pallas
 launch, bit for bit:
 
-* B6 takes one warp per group of 8 rays.  Each lane pre-tests a super's
-  box (``sbounds``) against the group's live rays in the
-  ``(box - o) * inv`` form, a NaN super test counting as entering; the
-  group runs the 16 cluster tests of a super only when one of its live
-  rays may enter it; each cluster's bit is the OR over the group's live
-  rays.  ``gmask_twin`` must equal ``_group_words(..., fma_form=False)``
+* B6 takes one warp per group of 8 rays (or per four consecutive groups,
+  one after the other).  Each lane pre-tests a super's box (``sbounds``)
+  against the group's live rays in the ``(box - o) * inv`` form, a NaN
+  super test counting as entering; the group runs the 16 cluster tests of
+  a super only when one of its live rays may enter it; each cluster's bit
+  is the OR over the group's live rays.  ``gmask_twin`` must equal ``_group_words(..., fma_form=False)``
   and ``_launch_cull_gmask``, no cluster of a failed super may be
   entered, and some groups must skip some supers.
-* B5 takes one warp per group too, one lane per (group, super) item: the
-  minimum over the group's live rays of each entry max(t_near, 0) that
-  passes, else BIG, in registers.  ``perray_twin`` must equal
-  ``cull_perray_plain`` and ``_launch_cull_perray`` (-0 and +0 compare
-  equal).
+* B5 takes one lane per (group, super) item, a warp's items those of
+  one or four consecutive groups: the minimum over the group's rays of
+  each entry max(t_near, 0) that passes, else BIG, in registers.
+  ``perray_twin`` must equal ``cull_perray_plain`` and
+  ``_launch_cull_perray`` (-0 and +0 compare equal).
 
 Inputs: rays aimed at a sphere, axis-parallel rays, rays starting on box
 faces and at zero coordinates, all live, a third dead and all dead, on a
 model whose last super is partial; and random boxes at S = 50, 64 and 246
 with dead, half-dead, on-face and zero-direction tiles.  No test needs a
-card."""
+card; the launch shape (``group_cull_shape``) is checked on the frames'
+launch sizes."""
 
 import numpy as np
 import pytest
@@ -241,3 +242,16 @@ def test_nan_super_test_counts_as_entering():
     assert not torch.isnan(tn[GROUP:]).any()
     assert bool(enter.all()) and bool(tested.all())
     assert int(words[1]) == 0b10              # inside cluster 1's x range
+
+
+@pytest.mark.parametrize("n_rays, many", [(4096, False), (65536, False),
+                                          (745472, True), (1048576, True)])
+def test_group_cull_shape_on_the_frames_launches(n_rays, many):
+    """On 132 SMs, the binned and pg frames' 4,096-ray launches (a few
+    live groups among 512) take one group a warp, so the live ones run
+    side by side; their 745,472- and 1,048,576-ray launches take
+    ``CULL_WARP_GROUPS``, whose rays load together.  A warp's groups are
+    at most its 32 lanes' rays, a block at most 16 warps."""
+    gpw, warps = tr.group_cull_shape(n_rays // GROUP, 132)
+    assert gpw == (tr.CULL_WARP_GROUPS if many else 1)
+    assert 1 <= gpw * GROUP <= 32 and 1 <= warps <= 16
