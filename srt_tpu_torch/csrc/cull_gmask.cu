@@ -26,12 +26,14 @@
 //    test; its super test is masked by its liveness).  Per 32 supers,
 //    lane j pre-tests super s0 + j (sbounds, may_enter<false>) and a
 //    ballot gives the supers the group may enter; only those get cluster
-//    tests.
+//    tests.  (Reading the rays from shared memory at each test instead,
+//    at 40 registers against 99, took the pg frame 2% lower and the
+//    65,536-ray cases 10% higher; PERF.md.)
 // 2. The group OR was a shuffle chain per super.  Now each lane tests one
-//    cluster against all of the group's rays, so the OR is the
-//    lane's own; the two halves of the warp take two entered supers at a
-//    time (cluster lane & 15 of each), and one ballot holds both 16-bit
-//    words.  No shuffle chain, no reduction.
+//    cluster against all of the group's rays, so the OR is the lane's
+//    own; the two halves of the warp take two entered supers at a time
+//    (cluster lane & 15 of each), and one ballot holds both 16-bit words.
+//    No shuffle chain, no reduction.
 // 3. Scattered stores: now lane j keeps super s0 + j's word and stores
 //    it, so a group's row is written 32 consecutive ints at a time and a
 //    block's rows are one span.  Groups with no live ray store zeros the
@@ -63,9 +65,6 @@ using namespace srt;
 constexpr int GROUP = 8;
 constexpr int MAX_WARPS = 16;  // warps a block, at most
 
-// REG_RAYS: the group's rays in registers, else read from shared memory
-// at each test.
-template <bool REG_RAYS>
 __global__ void __launch_bounds__(32 * MAX_WARPS)
     cull_gmask_kernel(const float* __restrict__ rays8,
                       const float* __restrict__ cb8, int stride,
@@ -77,15 +76,8 @@ __global__ void __launch_bounds__(32 * MAX_WARPS)
   if (g0 >= (size_t)n_groups) return;  // warp-uniform; no block barrier
   const int ng = (int)min((size_t)gpw, (size_t)n_groups - g0);
   float4* rs = ray_sh + warp * 2 * 32;
-  bool lane_live = false;
-  if (lane < ng * GROUP) {
-    const Ray r = load_ray(rays8, g0 * GROUP + lane);
-    lane_live = r.t_max > 0.f;
-    rs[2 * lane] = make_float4(r.ox, r.oy, r.oz, r.t_max);
-    rs[2 * lane + 1] = make_float4(1.f / r.dx, 1.f / r.dy, 1.f / r.dz, 0.f);
-  }
-  const unsigned live_all = __ballot_sync(FULL, lane_live);
-  __syncwarp();
+  const unsigned live_all =
+      stage_group_rays(rays8, g0 * GROUP, ng * GROUP, rs);
 
   for (int gl = 0; gl < ng; ++gl) {  // warp-uniform
     int* row = mask + (g0 + gl) * S;
@@ -94,14 +86,11 @@ __global__ void __launch_bounds__(32 * MAX_WARPS)
       for (int s = lane; s < S; s += 32) row[s] = 0;
       continue;
     }
-    const float4* r = rs + 2 * GROUP * gl;
     float4 o[GROUP], iv[GROUP];  // (origin, t_max), reciprocals
-    if (REG_RAYS) {
 #pragma unroll
-      for (int k = 0; k < GROUP; ++k) {
-        o[k] = r[2 * k];
-        iv[k] = r[2 * k + 1];
-      }
+    for (int k = 0; k < GROUP; ++k) {
+      o[k] = rs[2 * (GROUP * gl + k)];
+      iv[k] = rs[2 * (GROUP * gl + k) + 1];
     }
     for (int s0 = 0; s0 < S; s0 += 32) {
       const int s = s0 + lane;
@@ -111,13 +100,10 @@ __global__ void __launch_bounds__(32 * MAX_WARPS)
                                      sb[3 * S + s]);
         const float4 b = make_float4(sb[4 * S + s], sb[5 * S + s], 0.f, 0.f);
 #pragma unroll
-        for (int k = 0; k < GROUP; ++k) {
-          const float4 ok = REG_RAYS ? o[k] : r[2 * k];
-          const float4 ik = REG_RAYS ? iv[k] : r[2 * k + 1];
+        for (int k = 0; k < GROUP; ++k)
           enter |= ((live >> k) & 1u) &&
-                   may_enter<false>(a, b, ok.x, ok.y, ok.z, ik.x, ik.y, ik.z,
-                                    ok.w);
-        }
+                   may_enter<false>(a, b, o[k].x, o[k].y, o[k].z, iv[k].x,
+                                    iv[k].y, iv[k].z, o[k].w);
       }
       unsigned todo = __ballot_sync(FULL, enter);
       unsigned word = 0;
@@ -137,11 +123,10 @@ __global__ void __launch_bounds__(32 * MAX_WARPS)
                       hz = __ldg(cb8 + 5 * stride + c);
 #pragma unroll
           for (int k = 0; k < GROUP; ++k) {
-            const float4 ok = REG_RAYS ? o[k] : r[2 * k];
-            const float4 ik = REG_RAYS ? iv[k] : r[2 * k + 1];
             float sel;  // a dead ray (t_max <= 0) passes no test
-            occ |= slab<false>(lx, ly, lz, hx, hy, hz, ok.x, ok.y, ok.z, ik.x,
-                               ik.y, ik.z, ok.w, &sel);
+            occ |= slab<false>(lx, ly, lz, hx, hy, hz, o[k].x, o[k].y,
+                               o[k].z, iv[k].x, iv[k].y, iv[k].z, o[k].w,
+                               &sel);
           }
         }
         const unsigned w = __ballot_sync(FULL, occ);
@@ -158,7 +143,7 @@ __global__ void __launch_bounds__(32 * MAX_WARPS)
 extern "C" int srt_cull_gmask(const float* rays8, const float* cb8,
                               int stride, const float* sbounds, int n_rays,
                               int S, int groups_per_warp, int warps_per_block,
-                              int reg_rays, int* mask, void* stream) {
+                              int* mask, void* stream) {
   if (groups_per_warp < 1 || groups_per_warp > 32 / GROUP ||
       warps_per_block < 1 || warps_per_block > MAX_WARPS)
     return (int)cudaErrorInvalidValue;
@@ -166,10 +151,10 @@ extern "C" int srt_cull_gmask(const float* rays8, const float* cb8,
   const int n_warps = (n_groups + groups_per_warp - 1) / groups_per_warp;
   const int grid = (n_warps + warps_per_block - 1) / warps_per_block;
   const size_t smem = (size_t)warps_per_block * 2 * 32 * sizeof(float4);
-  const auto kernel =
-      reg_rays ? cull_gmask_kernel<true> : cull_gmask_kernel<false>;
   if (grid > 0 && S > 0)
-    kernel<<<grid, 32 * warps_per_block, smem, (cudaStream_t)stream>>>(
-        rays8, cb8, stride, sbounds, n_groups, S, groups_per_warp, mask);
+    cull_gmask_kernel<<<grid, 32 * warps_per_block, smem,
+                        (cudaStream_t)stream>>>(rays8, cb8, stride, sbounds,
+                                                n_groups, S, groups_per_warp,
+                                                mask);
   return (int)cudaGetLastError();
 }

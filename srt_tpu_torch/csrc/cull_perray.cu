@@ -53,15 +53,8 @@ __global__ void __launch_bounds__(32 * MAX_WARPS)
   if (g0 >= (size_t)n_groups) return;  // warp-uniform; no block barrier
   const int ng = (int)min((size_t)gpw, (size_t)n_groups - g0);
   float4* rs = ray_sh + warp * 2 * 32;
-  bool lane_live = false;
-  if (lane < ng * GROUP) {
-    const Ray r = load_ray(rays8, g0 * GROUP + lane);
-    lane_live = r.t_max > 0.f;
-    rs[2 * lane] = make_float4(r.ox, r.oy, r.oz, r.t_max);
-    rs[2 * lane + 1] = make_float4(1.f / r.dx, 1.f / r.dy, 1.f / r.dz, 0.f);
-  }
-  const unsigned live = __ballot_sync(FULL, lane_live);
-  __syncwarp();
+  const unsigned live =
+      stage_group_rays(rays8, g0 * GROUP, ng * GROUP, rs);
   float* out = e + g0 * S;
   // Item i = gl * S + s: lane's first item, then 32 on.
   int gl = lane / S, s = lane - gl * S;

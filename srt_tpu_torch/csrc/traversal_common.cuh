@@ -1,8 +1,8 @@
 // Shared device code of the walk kernels (cull.cu, intersect.cu,
 // cull_pg2.cu, pgwalk2.cu, cull_perray.cu, cull_gmask.cu, pgwalk.cu):
-// constants, NaN-propagating min/max, the slab
-// test, the Woop unit-triangle evaluation, the walks' bulk-copy
-// stage and the split walks' key merge.  The arithmetic matches the
+// constants, NaN-propagating min/max, the slab test and the culls' super
+// pre-test, the group culls' ray staging, the Woop unit-triangle
+// evaluation, the walks' bulk-copy stage and the split walks' key merge.  The arithmetic matches the
 // plain PyTorch versions in srt_tpu_torch/ops/traversal.py operation for
 // operation; the library is built with -fmad=false, so every multiply and
 // add rounds separately on both sides and candidate t agrees bit for bit.
@@ -85,6 +85,25 @@ __device__ __forceinline__ void slab_span(float lx, float ly, float lz,
                     min_nan(t0z, t1z));
   *t_far = min_nan(min_nan(max_nan(t0x, t1x), max_nan(t0y, t1y)),
                    max_nan(t0z, t1z));
+}
+
+// The group culls' (B5, B6) ray staging: lanes l < n of the warp load ray
+// first + l into rs[2l], rs[2l + 1] as (origin, t_max) and the IEEE
+// reciprocals (0 in w).  Returns the warp's ballot of live rays (t_max >
+// 0), bit l for ray first + l; the warp's lanes may read rs on return.
+__device__ __forceinline__ unsigned stage_group_rays(
+    const float* __restrict__ rays8, size_t first, int n, float4* rs) {
+  const int lane = threadIdx.x & 31;
+  bool live = false;
+  if (lane < n) {
+    const Ray r = load_ray(rays8, first + lane);
+    live = r.t_max > 0.f;
+    rs[2 * lane] = make_float4(r.ox, r.oy, r.oz, r.t_max);
+    rs[2 * lane + 1] = make_float4(1.f / r.dx, 1.f / r.dy, 1.f / r.dz, 0.f);
+  }
+  const unsigned ballot = __ballot_sync(FULL, live);
+  __syncwarp();
+  return ballot;
 }
 
 // Slab test, entry bound max(t_near, 0) (not exit-if-inside: a box entered

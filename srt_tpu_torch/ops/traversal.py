@@ -687,7 +687,6 @@ def cull_perray_plain(rays8, sbounds):
 CULL_WARP_GROUPS = 4
 CULL_FILL = 128
 CULL_BLOCK_WARPS = 4
-CULL_GMASK_REG_RAYS = True
 
 
 def group_cull_shape(n_groups: int, sms: int):
@@ -784,8 +783,7 @@ def cull_gmask(rays8, cb8, s_count: int, sbounds, plain: bool = False):
     cb8 = _f32(cb8)
     _launch("cull_gmask", _f32(rays8), cb8, cb8.shape[1], _f32(sbounds),
             npad, s_count,
-            *group_cull_shape(npad // GROUP, _sm_count(rays8.device)),
-            int(CULL_GMASK_REG_RAYS), mask)
+            *group_cull_shape(npad // GROUP, _sm_count(rays8.device)), mask)
     return mask
 
 

@@ -53,10 +53,7 @@ _GROUP_CULL = ([dict(_GC, CULL_WARP_GROUPS=gpw) for gpw in (4, 1, 2)]
 CHOICES = {"cull": [dict(CULL_RAYS_PER_THREAD=rpt) for rpt in (1, 2)],
            "intersect": _WALK, "intersect_stream": _WALK,
            "pgwalk": _PGWALK,
-           "cull_perray": _GROUP_CULL,
-           "cull_gmask": ([dict(_GC, CULL_GMASK_REG_RAYS=True)]
-                          + [dict(_GC, CULL_GMASK_REG_RAYS=False,
-                                  CULL_WARP_GROUPS=gpw) for gpw in (1, 4)])}
+           "cull_perray": _GROUP_CULL, "cull_gmask": _GROUP_CULL}
 # The frames whose calls each kernel's sweep times.
 FRAMES = {"cull": ("headline", "config8"),
           "intersect": ("headline", "binned"),
