@@ -866,9 +866,9 @@ def replay_frame(tag, plan, cases, key):
             elif name in ("cull_perray", "cull_gmask"):
                 n_groups = rays8.shape[0] // 8
                 live_groups = int((rays8[:, 6] > 0).view(-1, 8).any(1).sum())
-                gpw = tr.group_cull_shape(n_groups, torch.cuda.
-                                          get_device_properties(rays8.device)
-                                          .multi_processor_count)[0]
+                sms = torch.cuda.get_device_properties(
+                    rays8.device).multi_processor_count
+                gpw = tr.group_cull_shape(n_groups, sms)[0]
                 mode += (f", {n_groups} groups ({live_groups} live), "
                          f"S={args['sbounds'].shape[1]}, {gpw} a warp")
             elif name == "cull":

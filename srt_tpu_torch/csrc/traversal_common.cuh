@@ -2,10 +2,11 @@
 // cull_pg2.cu, pgwalk2.cu, cull_perray.cu, cull_gmask.cu, pgwalk.cu):
 // constants, NaN-propagating min/max, the slab test and the culls' super
 // pre-test, the group culls' ray staging, the Woop unit-triangle
-// evaluation, the walks' bulk-copy stage and the split walks' key merge.  The arithmetic matches the
-// plain PyTorch versions in srt_tpu_torch/ops/traversal.py operation for
-// operation; the library is built with -fmad=false, so every multiply and
-// add rounds separately on both sides and candidate t agrees bit for bit.
+// evaluation, the walks' bulk-copy stage and the split walks' key merge.
+// The arithmetic matches the plain PyTorch versions in
+// srt_tpu_torch/ops/traversal.py operation for operation; the library is
+// built with -fmad=false, so every multiply and add rounds separately on
+// both sides and candidate t agrees bit for bit.
 #pragma once
 
 #include <cuda_runtime.h>
