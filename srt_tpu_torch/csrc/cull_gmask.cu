@@ -23,15 +23,12 @@
 //    its IEEE reciprocals once into shared memory, and the warp culls the
 //    groups one after the other, the group's 8 rays in registers, tested
 //    as independent chains with no branch (a dead ray passes no cluster
-//    test; its super test is masked by its liveness).  Per 32 supers the
-//    warp pre-tests the supers in two stages: lane j tests super s0 + j
-//    against the group's ray bundle (bundle_may_enter: one conservative
-//    test for the 8 rays, traversal_common.cuh), then, four candidates
-//    at a time, lane 8c + k tests candidate c against live ray k
-//    (may_enter<false>); only the supers some live ray may enter get
-//    cluster tests.  (Reading the rays from shared memory at each
-//    cluster test instead, at 40 registers against 99, took the pg frame
-//    2% lower and the 65,536-ray cases 10% higher; PERF.md.)
+//    test; its super test is masked by its liveness).  Per 32 supers,
+//    lane j pre-tests super s0 + j (sbounds, may_enter<false>) and a
+//    ballot gives the supers the group may enter; only those get cluster
+//    tests.  (Reading the rays from shared memory at each test instead,
+//    at 40 registers against 99, took the pg frame 2% lower and the
+//    65,536-ray cases 10% higher; PERF.md.)
 // 2. The group OR was a shuffle chain per super.  Now each lane tests one
 //    cluster against all of the group's rays, so the OR is the lane's
 //    own; the two halves of the warp take two entered supers at a time
@@ -50,8 +47,7 @@
 //    live groups run side by side; large ones take four, whose rays load
 //    together.
 //
-// Why the pre-test is exact in this form.  The bundle's test is exact by
-// its own argument (traversal_common.cuh).  Rounding of box - o is
+// Why the pre-test is exact in this form.  Rounding of box - o is
 // monotone in the box bound, multiplying by a fixed inv keeps or reverses
 // the order, and min/max undo the reversal; so a super's t_near is <= and
 // its t_far >= those of every cluster it holds (sbounds is the exact
@@ -74,17 +70,14 @@ __global__ void __launch_bounds__(32 * MAX_WARPS)
                       const float* __restrict__ cb8, int stride,
                       const float* __restrict__ sb, int n_groups, int S,
                       int gpw, int* __restrict__ mask) {
-  extern __shared__ float4 sh[];  // [warps][32 rays * 2 + 4 bundles * 4]
+  extern __shared__ float4 ray_sh[];  // [warps][32 rays][2]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t g0 = ((size_t)blockIdx.x * (blockDim.x >> 5) + warp) * gpw;
   if (g0 >= (size_t)n_groups) return;  // warp-uniform; no block barrier
   const int ng = (int)min((size_t)gpw, (size_t)n_groups - g0);
-  float4* rs = sh + warp * (2 * 32 + 4 * 4);
-  float4* bs = rs + 2 * 32;
+  float4* rs = ray_sh + warp * 2 * 32;
   const unsigned live_all =
       stage_group_rays(rays8, g0 * GROUP, ng * GROUP, rs);
-  stage_group_bundles(rs, ng * GROUP, bs);
-  const int jc = lane >> 3, kc = lane & 7;  // pre-test: candidate, ray
 
   for (int gl = 0; gl < ng; ++gl) {  // warp-uniform
     int* row = mask + (g0 + gl) * S;
@@ -101,37 +94,18 @@ __global__ void __launch_bounds__(32 * MAX_WARPS)
     }
     for (int s0 = 0; s0 < S; s0 += 32) {
       const int s = s0 + lane;
-      // The super pre-test in two stages: the group bundle's test per
-      // super (lane j: super s0 + j), then, four candidates at a time,
-      // each live ray's own test (lane 8 jc + kc: candidate jc, ray kc).
-      bool cand = false;
-      if (s < S)
-        cand = bundle_may_enter(
-            make_float4(sb[s], sb[S + s], sb[2 * S + s], sb[3 * S + s]),
-            make_float4(sb[4 * S + s], sb[5 * S + s], 0.f, 0.f),
-            bs + 4 * gl);
-      unsigned left = __ballot_sync(FULL, cand), todo = 0;
-      while (left) {  // warp-uniform
-        unsigned c = left;
-        for (int t = 0; t < jc; ++t) c &= c - 1;
-        bool enter = false;
-        if (c && ((live >> kc) & 1u)) {
-          const int q = s0 + __ffs(c) - 1;
-          const float4 a = make_float4(sb[q], sb[S + q], sb[2 * S + q],
-                                       sb[3 * S + q]);
-          const float4 b = make_float4(sb[4 * S + q], sb[5 * S + q], 0.f,
-                                       0.f);
-          const float4 ok = rs[2 * (GROUP * gl + kc)];
-          const float4 ik = rs[2 * (GROUP * gl + kc) + 1];
-          enter = may_enter<false>(a, b, ok.x, ok.y, ok.z, ik.x, ik.y, ik.z,
-                                   ok.w);
-        }
-        const unsigned e = __ballot_sync(FULL, enter);
-        for (int t = 0; t < 4 && left; ++t) {
-          if ((e >> (GROUP * t)) & 0xffu) todo |= left & (0u - left);
-          left &= left - 1;
-        }
+      bool enter = false;
+      if (s < S) {
+        const float4 a = make_float4(sb[s], sb[S + s], sb[2 * S + s],
+                                     sb[3 * S + s]);
+        const float4 b = make_float4(sb[4 * S + s], sb[5 * S + s], 0.f, 0.f);
+#pragma unroll
+        for (int k = 0; k < GROUP; ++k)
+          enter |= ((live >> k) & 1u) &&
+                   may_enter<false>(a, b, o[k].x, o[k].y, o[k].z, iv[k].x,
+                                    iv[k].y, iv[k].z, o[k].w);
       }
+      unsigned todo = __ballot_sync(FULL, enter);
       unsigned word = 0;
       while (todo) {  // warp-uniform
         const int ja = __ffs(todo) - 1;
@@ -176,8 +150,7 @@ extern "C" int srt_cull_gmask(const float* rays8, const float* cb8,
   const int n_groups = n_rays / GROUP;
   const int n_warps = (n_groups + groups_per_warp - 1) / groups_per_warp;
   const int grid = (n_warps + warps_per_block - 1) / warps_per_block;
-  const size_t smem =
-      (size_t)warps_per_block * (2 * 32 + 4 * 4) * sizeof(float4);
+  const size_t smem = (size_t)warps_per_block * 2 * 32 * sizeof(float4);
   if (grid > 0 && S > 0)
     cull_gmask_kernel<<<grid, 32 * warps_per_block, smem,
                         (cudaStream_t)stream>>>(rays8, cb8, stride, sbounds,

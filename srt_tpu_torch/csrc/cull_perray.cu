@@ -10,27 +10,21 @@
 // What bounds it: S slab tests (~26 operations each) per live ray against
 // the rays read and 4 bytes written per group and super: at the
 // headline's S = 50 the bytes, on paper; -fmad=false and 30-odd
-// instructions a test make the tests issue-bound in practice, hence the
-// group bundle's test that skips most of them.  What held the
+// instructions a test make it issue-bound in practice.  What held the
 // first design (one thread per ray, a three-step shuffle-and-fminf chain
 // per super, one lane in eight storing S scattered floats, and 16 blocks
 // on 132 SMs for a 4,096-ray launch) back, and what this one does:
 //
-// 1. The per-super shuffle chain: now a warp takes gpw consecutive
-//    groups (1, 2 or 4: traversal.group_cull_shape), each lane loads one
-//    of their rays and its IEEE reciprocals once into shared memory, and
-//    the warp reduces each group's ray bundle (stage_group_bundles).
-//    Lane i takes items i, i + 32, ... of the warp's gpw * S (group-major,
-//    so consecutive lanes hold consecutive supers) and tests its super
-//    against the item's group bundle (bundle_may_enter: one conservative
-//    test for the 8 rays; a failed one means BIG).  The candidates that
-//    pass go four at a time to 8 lanes each, one ray a lane, and one
-//    redux.sync minimum on the entry bits gives the item's value: a
-//    passing entry is +0 or positive (nmax(-0, +0) gives +0), so its
-//    bits order as the float does, and BIG's above every passing entry
-//    below it.  (A lane per item testing all 8 rays, without the bundle
-//    stage, and a thread per ray with a redux.sync minimum per group and
-//    super were slower on the binned frame; PERF.md.)
+// 1. A thread per (group, super) item, no reduction: a warp takes gpw
+//    consecutive groups (1, 2 or 4: traversal.group_cull_shape), each lane
+//    loads one of their rays and its IEEE reciprocals once into shared
+//    memory, and lane i takes items i, i + 32, ... of the warp's gpw * S
+//    (group-major, so consecutive lanes hold consecutive supers).  An item
+//    reads its group's 8 rays from shared memory (broadcasts), tests them
+//    as independent chains with no branch (a dead ray passes no test) and
+//    keeps the minimum in a register.  (A thread per ray with one
+//    redux.sync minimum per group and super was slower on every launch
+//    of the binned frame; PERF.md.)
 // 2. Scattered stores: item i of the warp is float i of its groups' rows,
 //    so each store instruction covers 32 consecutive floats and a block's
 //    rows are one span.
@@ -53,59 +47,33 @@ __global__ void __launch_bounds__(32 * MAX_WARPS)
     cull_perray_kernel(const float* __restrict__ rays8,
                        const float* __restrict__ sb, int n_groups, int S,
                        int gpw, float* __restrict__ e) {
-  extern __shared__ float4 sh[];  // [warps][32 rays * 2 + 4 bundles * 4]
+  extern __shared__ float4 ray_sh[];  // [warps][32 rays][2]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t g0 = ((size_t)blockIdx.x * (blockDim.x >> 5) + warp) * gpw;
   if (g0 >= (size_t)n_groups) return;  // warp-uniform; no block barrier
   const int ng = (int)min((size_t)gpw, (size_t)n_groups - g0);
-  float4* rs = sh + warp * (2 * 32 + 4 * 4);
-  float4* bs = rs + 2 * 32;
+  float4* rs = ray_sh + warp * 2 * 32;
   const unsigned live =
       stage_group_rays(rays8, g0 * GROUP, ng * GROUP, rs);
-  stage_group_bundles(rs, ng * GROUP, bs);
-  const unsigned big_bits = __float_as_uint(BIG);
-  const int j = lane >> 3, k = lane & 7;  // stage 2: candidate j, ray k
   float* out = e + g0 * S;
   // Item i = gl * S + s: lane's first item, then 32 on.
   int gl = lane / S, s = lane - gl * S;
-  for (int i = lane; __any_sync(FULL, gl < ng); i += 32) {
-    // Stage 1: the item's group bundle test.
-    bool cand = false;
-    if (gl < ng && ((live >> (GROUP * gl)) & 0xffu)) {
-      const float4 a = make_float4(sb[s], sb[S + s], sb[2 * S + s],
-                                   sb[3 * S + s]);
-      const float4 b = make_float4(sb[4 * S + s], sb[5 * S + s], 0.f, 0.f);
-      cand = bundle_may_enter(a, b, bs + 4 * gl);
-    }
-    unsigned todo = __ballot_sync(FULL, cand);
+  for (int i = lane; gl < ng; i += 32) {
     float v = BIG;
-    // Stage 2: four candidates at a time, 8 lanes each (one ray a lane),
-    // the group minimum of the entry bits by one redux.sync (a passing
-    // entry is +0 or positive, so its bits order as the float does, and
-    // BIG's above every passing entry below it).
-    while (todo) {  // warp-uniform
-      unsigned c = todo;
-      for (int t = 0; t < j; ++t) c &= c - 1;
-      const int p = c ? __ffs(c) - 1 : 0;
-      const int pg = __shfl_sync(FULL, gl, p), ps = __shfl_sync(FULL, s, p);
-      unsigned bits = big_bits;
-      if (c) {
-        const float4 o = rs[2 * (GROUP * pg + k)];
-        const float4 iv = rs[2 * (GROUP * pg + k) + 1];
+    if ((live >> (GROUP * gl)) & 0xffu) {
+      const float lx = sb[s], ly = sb[S + s], lz = sb[2 * S + s],
+                  hx = sb[3 * S + s], hy = sb[4 * S + s], hz = sb[5 * S + s];
+      const float4* r = rs + 2 * GROUP * gl;
+#pragma unroll
+      for (int k = 0; k < GROUP; ++k) {
+        const float4 o = r[2 * k], iv = r[2 * k + 1];
         float sel;  // a dead ray (t_max <= 0) passes no test
-        if (slab<false>(sb[ps], sb[S + ps], sb[2 * S + ps], sb[3 * S + ps],
-                        sb[4 * S + ps], sb[5 * S + ps], o.x, o.y, o.z, iv.x,
-                        iv.y, iv.z, o.w, &sel))
-          bits = __float_as_uint(sel);
+        if (slab<false>(lx, ly, lz, hx, hy, hz, o.x, o.y, o.z, iv.x, iv.y,
+                        iv.z, o.w, &sel))
+          v = fminf(v, sel);
       }
-      const unsigned m = __reduce_min_sync(0xffu << (GROUP * j), bits);
-      const int rank = __popc(todo & ((1u << lane) - 1u));
-      const bool mine = ((todo >> lane) & 1u) && rank < 4;
-      const unsigned got = __shfl_sync(FULL, m, mine ? GROUP * rank : 0);
-      if (mine) v = __uint_as_float(got);
-      for (int t = 0; t < 4; ++t) todo &= todo - 1;
     }
-    if (gl < ng) out[i] = v;
+    out[i] = v;
     for (s += 32; s >= S; s -= S) ++gl;
   }
 }
@@ -121,8 +89,7 @@ extern "C" int srt_cull_perray(const float* rays8, const float* sbounds,
   const int n_groups = n_rays / GROUP;
   const int n_warps = (n_groups + groups_per_warp - 1) / groups_per_warp;
   const int grid = (n_warps + warps_per_block - 1) / warps_per_block;
-  const size_t smem =
-      (size_t)warps_per_block * (2 * 32 + 4 * 4) * sizeof(float4);
+  const size_t smem = (size_t)warps_per_block * 2 * 32 * sizeof(float4);
   if (grid > 0 && S > 0)
     cull_perray_kernel<<<grid, 32 * warps_per_block, smem,
                          (cudaStream_t)stream>>>(rays8, sbounds, n_groups, S,

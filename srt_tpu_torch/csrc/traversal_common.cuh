@@ -107,98 +107,6 @@ __device__ __forceinline__ unsigned stage_group_rays(
   return ballot;
 }
 
-// The group culls' ray bundle: per group of 8 rays, over its live rays
-// (t_max > 0), each axis's range of origins and of reciprocals, and the
-// largest t_max; an axis is bounded when every live ray's origin and
-// reciprocal on it are finite and the reciprocals share a sign.  Four
-// float4 a group: (origin low, t_max), (origin high, bounded bits),
-// (reciprocal low, 0), (reciprocal high, 0).  Lanes l < n hold ray l of
-// rs (stage_group_rays); lane 8g writes group g's bundle to bs[4g..4g+3];
-// the warp's lanes may read bs on return.
-__device__ __forceinline__ void stage_group_bundles(const float4* rs, int n,
-                                                    float4* bs) {
-  const int lane = threadIdx.x & 31;
-  const float inf = __int_as_float(0x7f800000);
-  float4 o = make_float4(0.f, 0.f, 0.f, 0.f), iv = o;
-  if (lane < n) {
-    o = rs[2 * lane];
-    iv = rs[2 * lane + 1];
-  }
-  const bool live = lane < n && o.w > 0.f;
-  const float oa[3] = {o.x, o.y, o.z}, ia[3] = {iv.x, iv.y, iv.z};
-  float olo[3], ohi[3], ilo[3], ihi[3];
-  unsigned bad = 0;  // bit a: not all positive there; bit 3 + a: negative
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const bool fin = isfinite(oa[a]) && isfinite(ia[a]);
-    if (live && !(fin && ia[a] > 0.f)) bad |= 1u << a;
-    if (live && !(fin && ia[a] < 0.f)) bad |= 8u << a;
-    olo[a] = live ? oa[a] : inf;
-    ohi[a] = live ? oa[a] : -inf;
-    ilo[a] = live ? ia[a] : inf;
-    ihi[a] = live ? ia[a] : -inf;
-  }
-  float tm = live ? o.w : -inf;
-#pragma unroll
-  for (int off = 4; off > 0; off >>= 1) {
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      olo[a] = fminf(olo[a], __shfl_xor_sync(FULL, olo[a], off));
-      ohi[a] = fmaxf(ohi[a], __shfl_xor_sync(FULL, ohi[a], off));
-      ilo[a] = fminf(ilo[a], __shfl_xor_sync(FULL, ilo[a], off));
-      ihi[a] = fmaxf(ihi[a], __shfl_xor_sync(FULL, ihi[a], off));
-    }
-    tm = fmaxf(tm, __shfl_xor_sync(FULL, tm, off));
-    bad |= __shfl_xor_sync(FULL, bad, off);
-  }
-  if ((lane & 7) == 0 && lane < n) {
-    const unsigned bounded = (~bad & 7u) | ((~bad >> 3) & 7u);
-    float4* b = bs + 4 * (lane >> 3);
-    b[0] = make_float4(olo[0], olo[1], olo[2], tm);
-    b[1] = make_float4(ohi[0], ohi[1], ohi[2], __uint_as_float(bounded));
-    b[2] = make_float4(ilo[0], ilo[1], ilo[2], 0.f);
-    b[3] = make_float4(ihi[0], ihi[1], ihi[2], 0.f);
-  }
-  __syncwarp();
-}
-
-// The bundle's test of a box (a, b) = (lo xyz, hi x), (hi yz, -): false
-// only when no live ray of the group enters the box before its t_max,
-// so a group may skip its per-ray tests of the box.  On a bounded axis,
-// box - o rounds monotonically in o and a product monotonically in each
-// factor of fixed sign, so each ray's (box - o) * inv lies between the
-// products of the ranges' ends: the lowest entry is xn * (xn >= 0 ? ilo
-// : ihi) with xn the near face's lowest box - o, the highest exit xf *
-// (xf >= 0 ? ihi : ilo) with xf the far face's highest (the near face is
-// the low one for positive reciprocals).  An unbounded axis does not
-// constrain: a ray's NaN or infinite slab there cannot make a box it
-// fails elsewhere pass.  NaN counts as a pass.
-__device__ __forceinline__ bool bundle_may_enter(const float4& a,
-                                                 const float4& b,
-                                                 const float4* bd) {
-  const float inf = __int_as_float(0x7f800000);
-  const float4 olo = bd[0], ohi = bd[1], ilo = bd[2], ihi = bd[3];
-  const unsigned bounded = __float_as_uint(ohi.w);
-  const float bl[3] = {a.x, a.y, a.z}, bh[3] = {a.w, b.x, b.y};
-  const float ol[3] = {olo.x, olo.y, olo.z}, oh[3] = {ohi.x, ohi.y, ohi.z};
-  const float yl[3] = {ilo.x, ilo.y, ilo.z}, yh[3] = {ihi.x, ihi.y, ihi.z};
-  float tn = -inf, tf = inf;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const bool pos = yl[k] > 0.f;
-    const float xl = bl[k] - oh[k], xh = bh[k] - ol[k];
-    const float xn = pos ? xl : xh, xf = pos ? xh : xl;
-    const float near = xn * (xn >= 0.f ? yl[k] : yh[k]);
-    const float far = xf * (xf >= 0.f ? yh[k] : yl[k]);
-    if ((bounded >> k) & 1u) {
-      tn = max_nan(tn, near);
-      tf = min_nan(tf, far);
-    }
-  }
-  const float sel = max_nan(tn, 0.f);
-  return !(sel > tf) && !(sel >= olo.w);
-}
-
 // Slab test, entry bound max(t_near, 0) (not exit-if-inside: a box entered
 // from inside can still hold candidates nearer than its exit).  *sel is +0
 // or positive when the test passes (nmax(-0, +0) returns +0).  The plain

@@ -47,47 +47,10 @@ def live_rays(rays8):
     return rays8[:, 6:7] > 0.0
 
 
-def bundle_pass(rays8, sbounds):
-    """The group culls' first stage: each group's ray bundle (over its
-    live rays, per axis the range of origins and of reciprocals, bounded
-    where all are finite and the reciprocals share a sign; the largest
-    t_max) tested against each super, as ``bundle_may_enter`` computes it:
-    [Np/8, S] bool."""
-    inf = float("inf")
-    r = rays8.view(-1, GROUP, 8)
-    o, inv = r[..., 0:3], 1.0 / r[..., 3:6]
-    live = r[..., 6] > 0.0
-    lv = live[..., None]
-    fin = torch.isfinite(o) & torch.isfinite(inv)
-    bounded = (~(lv & ~(fin & (inv > 0.0))).any(1)
-               | ~(lv & ~(fin & (inv < 0.0))).any(1))
-    olo = torch.where(lv, o, inf).amin(1)
-    ohi = torch.where(lv, o, -inf).amax(1)
-    ilo = torch.where(lv, inv, inf).amin(1)
-    ihi = torch.where(lv, inv, -inf).amax(1)
-    t_max = torch.where(live, r[..., 6], -inf).amax(1)[:, None]
-    s = sbounds.shape[1]
-    tn = torch.full((r.shape[0], s), -inf)
-    tf = torch.full((r.shape[0], s), inf)
-    for a in range(3):
-        yl, yh = ilo[:, a:a + 1], ihi[:, a:a + 1]
-        xl = sbounds[a][None] - ohi[:, a:a + 1]
-        xh = sbounds[3 + a][None] - olo[:, a:a + 1]
-        pos = yl > 0.0
-        xn, xf = torch.where(pos, xl, xh), torch.where(pos, xh, xl)
-        near = xn * torch.where(xn >= 0.0, yl, yh)
-        far = xf * torch.where(xf >= 0.0, yh, yl)
-        b = bounded[:, a:a + 1]
-        tn = torch.where(b, torch.maximum(tn, near), tn)
-        tf = torch.where(b, torch.minimum(tf, far), tf)
-    sel = torch.clamp_min(tn, 0.0)
-    return ~((sel > tf) | (sel >= t_max))
-
-
 def gmask_twin(rays8, cb8, sbounds, s_count):
     """B6's order of work.  Returns (words [Np/8, S], enter [Np, S] — the
     ray's super pre-test, tested [Np/8, S] — the supers whose cluster
-    tests the group ran: its bundle passes and a live ray may enter)."""
+    tests the group ran)."""
     c = tr._ray_cols(rays8)
     inv = [1.0 / c[3 + a] for a in range(3)]
     live = live_rays(rays8)
@@ -96,30 +59,25 @@ def gmask_twin(rays8, cb8, sbounds, s_count):
                            False)
     nan = torch.isnan(tn) | torch.isnan(tf)
     enter = live & (nan | ((tn <= tf) & (tf >= 0.0) & (sel < c[6])))
-    bundle = bundle_pass(rays8, sbounds)
-    tested = bundle & enter.view(-1, GROUP, s_count).any(1)
+    tested = enter.view(-1, GROUP, s_count).any(1)
     n_cl = s_count * tr.SUPER
     tn, tf, sel = tr._slab([cb8[a, :n_cl] for a in range(3)],
                            [cb8[3 + a, :n_cl] for a in range(3)], c[0:3],
                            inv, False)
     hit = live & (tn <= tf) & (tf >= 0.0) & (sel < c[6])
-    # Exactness of both stages: no cluster of a super that a ray's own
-    # test fails is entered by it, and none of a super whose bundle test
-    # fails is entered by any ray of the group.
+    # Exactness of the pre-test: no cluster of a failed super is entered.
     assert not (hit & ~enter.repeat_interleave(tr.SUPER, 1)).any()
-    hit = hit.view(-1, GROUP, s_count, tr.SUPER)
-    assert not (hit.any(3).any(1) & ~bundle).any()
-    occ = (hit & tested[:, None, :, None]).any(1)
+    hit = hit.view(-1, GROUP, s_count, tr.SUPER) & tested[:, None, :, None]
+    occ = hit.any(1)
     shifts = torch.arange(tr.SUPER, dtype=torch.int32)
     words = (occ.to(torch.int32) << shifts).sum(-1, dtype=torch.int32)
     return words, enter, tested
 
 
 def perray_twin(rays8, sbounds):
-    """B5's order of work: per (group, super) item, BIG unless its bundle
-    test passes; then the minimum over the group's 8 rays of each passing
-    entry max(t_near, 0), BIG for the others.  Returns (e [Np/8, S],
-    bundle [Np/8, S])."""
+    """B5's order of work: per (group, super) item, the running minimum
+    over the group's rays k = 0..7, live rays only, of each passing entry
+    max(t_near, 0), starting from BIG."""
     c = tr._ray_cols(rays8)
     inv = [1.0 / c[3 + a] for a in range(3)]
     tn, tf, sel = tr._slab([sbounds[a] for a in range(3)],
@@ -128,11 +86,11 @@ def perray_twin(rays8, sbounds):
     ok = live_rays(rays8) & (tn <= tf) & (tf >= 0.0) & (sel < c[6])
     s = sbounds.shape[1]
     ok = ok.view(-1, GROUP, s)
-    bundle = bundle_pass(rays8, sbounds)
-    # Exactness of the first stage: no ray passes where its bundle fails.
-    assert not (ok.any(1) & ~bundle).any()
-    entry = torch.where(ok, sel.view(-1, GROUP, s), tr.BIG).amin(1)
-    return torch.where(bundle, entry, tr.BIG), bundle
+    sel = sel.view(-1, GROUP, s)
+    v = torch.full(ok[:, 0].shape, tr.BIG)
+    for k in range(GROUP):
+        v = torch.where(ok[:, k], torch.minimum(v, sel[:, k]), v)
+    return v
 
 
 def random_cluster_case(s, seed):
@@ -140,9 +98,7 @@ def random_cluster_case(s, seed):
     the last super's 5 last clusters NaN padding (cb8 [8, 16*s]), and 1024
     rays in 8 tiles of 128: tile 0 dead, tile 1 half dead, tile 2
     starting on a cluster's low-x face going out, tile 3 with zero
-    direction components (some from a face on the zero axis), tiles 4-5
-    in coherent groups (8 rays from nearly one origin towards nearly one
-    super's centre, a few with a reciprocal of the other sign), the rest
+    direction components (some from a face on the zero axis), the rest
     random.  Returns (rays8, cb8, number of real clusters)."""
     rng = np.random.default_rng(seed)
     centre = rng.uniform(-3.0, 3.0, (s, 1, 3))
@@ -170,15 +126,6 @@ def random_cluster_case(s, seed):
     d[axis[::4], (axis[::4] + 1) % 3] = 0.0
     zero_face = axis[1::8]
     o[zero_face, zero_face % 3] = cb8[zero_face % 3, zero_face % n_cl]
-    coh = np.arange(4 * TILE, 6 * TILE)
-    base_o = np.repeat(rng.uniform(-5.0, 5.0, (len(coh) // GROUP, 3)),
-                       GROUP, 0)
-    aim = np.repeat(centre[rng.integers(0, s, len(coh) // GROUP), 0],
-                    GROUP, 0)
-    o[coh] = base_o + rng.normal(0.0, 0.02, (len(coh), 3))
-    d[coh] = aim - base_o + rng.normal(0.0, 0.02, (len(coh), 3))
-    flip = coh[rng.random(len(coh)) < 0.02]
-    d[flip, 0] = -d[flip, 0]
     rays8 = np.zeros((n, 8), np.float32)
     rays8[:, 0:3] = o
     rays8[:, 3:6] = d
@@ -217,7 +164,7 @@ def check_gmask(rays8, cb8, sbounds, s, n_cl, all_dead):
 
 
 def check_perray(rays8, sbounds, all_dead):
-    got, bundle = perray_twin(rays8, sbounds)
+    got = perray_twin(rays8, sbounds)
     assert torch.equal(got, tr.cull_perray_plain(rays8, sbounds))
     assert torch.equal(got, tr.cull_perray(rays8, sbounds))
     ref = jax_tp._launch_cull_perray(j(rays8), j(sbounds), TILE, True)
@@ -238,14 +185,7 @@ def test_gmask_twin_on_the_sphere(scenes, dead):
 
 @pytest.mark.parametrize("s", [50, 64, 246])
 def test_gmask_twin_on_random_boxes(s):
-    rays8, cb8, sbounds, _, n_cl = random_case(s)
-    check_gmask(rays8, cb8, sbounds, s, n_cl, all_dead=False)
-    # The bundle stage skips supers on the coherent groups, not only on
-    # dead ones.
-    busy = live_rays(rays8).view(-1, GROUP).any(1)
-    bundle = bundle_pass(rays8, sbounds)
-    assert not bundle[busy].all()
-    assert bool(bundle[busy].any())
+    check_gmask(*random_case(s), all_dead=False)
 
 
 @pytest.mark.parametrize("dead", ["live", "third", "all"])
