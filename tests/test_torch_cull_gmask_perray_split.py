@@ -220,7 +220,15 @@ def test_nan_super_test_counts_as_entering():
     it counts as entering, so the group runs the cluster tests.  One
     super of two real clusters, x in [-1, -0.5] and [-0.5, 0]; rays along
     +y from x = 0 (the super's high x: NaN) and from x = -0.25 (inside:
-    no NaN).  The words equal the plain version's either way."""
+    no NaN).  The words equal the plain version's either way.
+
+    The rule is conservative, not what makes the words exact: a NaN super
+    test puts the ray in the plane of the super's bound with no motion
+    across it, so each cluster either shares that bound (its own test is
+    NaN and fails) or lies off the plane (fails).  No cluster of such a
+    super passes, so a rule counting NaN as not entering would give the
+    same words; what this checks is the pre-test's verdict (``enter``)
+    and that the NaN group's word is 0."""
     cb8 = torch.full((8, tr.SUPER), float("nan"))
     cb8[6:] = 0.0
     cb8[:6, 0] = torch.tensor([-1.0, -1.0, -1.0, -0.5, 1.0, 1.0])
@@ -241,6 +249,7 @@ def test_nan_super_test_counts_as_entering():
     assert bool(torch.isnan(tn[:GROUP]).all())
     assert not torch.isnan(tn[GROUP:]).any()
     assert bool(enter.all()) and bool(tested.all())
+    assert int(words[0]) == 0                 # no cluster passes on x = 0
     assert int(words[1]) == 0b10              # inside cluster 1's x range
 
 
