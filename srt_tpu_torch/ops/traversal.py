@@ -687,6 +687,9 @@ def cull_perray_plain(rays8, sbounds):
 CULL_WARP_GROUPS = 4
 CULL_FILL = 128
 CULL_BLOCK_WARPS = 4
+# B6's variant (csrc/cull_gmask.cu): bit 0 the group's rays in registers,
+# bit 1 the cluster boxes staged in shared memory.
+CULL_GMASK_VARIANT = 1
 
 
 def group_cull_shape(n_groups: int, sms: int):
@@ -783,7 +786,8 @@ def cull_gmask(rays8, cb8, s_count: int, sbounds, plain: bool = False):
     cb8 = _f32(cb8)
     _launch("cull_gmask", _f32(rays8), cb8, cb8.shape[1], _f32(sbounds),
             npad, s_count,
-            *group_cull_shape(npad // GROUP, _sm_count(rays8.device)), mask)
+            *group_cull_shape(npad // GROUP, _sm_count(rays8.device)),
+            CULL_GMASK_VARIANT, mask)
     return mask
 
 

@@ -48,12 +48,16 @@ _PGWALK = ([dict(_PG, PGWALK_GROUPS=k, PGWALK_LANES=lanes)
            + [dict(_PG, PGWALK_FILL=fill) for fill in (2048, 4096)])
 _GC = dict(CULL_WARP_GROUPS=4, CULL_FILL=128, CULL_BLOCK_WARPS=4)
 _GROUP_CULL = ([dict(_GC, CULL_WARP_GROUPS=gpw) for gpw in (4, 1, 2)]
-               + [dict(_GC, CULL_FILL=fill) for fill in (32, 512)]
+               + [dict(_GC, CULL_FILL=fill) for fill in (0, 32, 512)]
                + [dict(_GC, CULL_BLOCK_WARPS=w) for w in (2, 8)])
+_GMASK = ([dict(choice, CULL_GMASK_VARIANT=1) for choice in _GROUP_CULL]
+          + [dict(choice, CULL_GMASK_VARIANT=v) for v in (0, 3, 2)
+             for choice in _GROUP_CULL[:4] + [
+                 dict(_GC, CULL_BLOCK_WARPS=w) for w in (2, 8, 16)]])
 CHOICES = {"cull": [dict(CULL_RAYS_PER_THREAD=rpt) for rpt in (1, 2)],
            "intersect": _WALK, "intersect_stream": _WALK,
            "pgwalk": _PGWALK,
-           "cull_perray": _GROUP_CULL, "cull_gmask": _GROUP_CULL}
+           "cull_perray": _GROUP_CULL, "cull_gmask": _GMASK}
 # The frames whose calls each kernel's sweep times.
 FRAMES = {"cull": ("headline", "config8"),
           "intersect": ("headline", "binned"),
