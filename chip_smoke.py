@@ -873,7 +873,9 @@ def replay_frame(tag, plan, cases, key):
                 live_groups = int((rays8[:, 6] > 0).view(-1, 8).any(1).sum())
                 sms = torch.cuda.get_device_properties(
                     rays8.device).multi_processor_count
-                gpw = tr.group_cull_shape(n_groups, sms)[0]
+                gpw = tr.group_cull_shape(n_groups, sms, (
+                    tr.CULL_WARP_GROUPS if name == "cull_perray"
+                    else tr.CULL_GMASK_WARP_GROUPS))[0]
                 mode += (f", {n_groups} groups ({live_groups} live), "
                          f"S={args['sbounds'].shape[1]}, {gpw} a warp")
             elif name == "cull":

@@ -18,17 +18,16 @@
 // eight storing S scattered words) back, and what this one does:
 //
 // 1. Every ray tested every cluster, though bounce and shadow rays enter
-//    few supers.  Now a warp takes gpw consecutive groups (1, 2 or 4:
+//    few supers.  Now a warp takes gpw consecutive groups (1 or 2:
 //    traversal.group_cull_shape), each lane loads one of their rays and
 //    its IEEE reciprocals once into shared memory, and the warp culls the
-//    groups one after the other, the group's 8 rays in registers, tested
-//    as independent chains with no branch (a dead ray passes no cluster
-//    test; its super test is masked by its liveness).  Per 32 supers,
-//    lane j pre-tests super s0 + j (sbounds, may_enter<false>) and a
-//    ballot gives the supers the group may enter; only those get cluster
-//    tests.  (Reading the rays from shared memory at each test instead,
-//    at 40 registers against 99, took the pg frame 2% lower and the
-//    65,536-ray cases 10% higher; PERF.md.)
+//    groups one after the other, reading the group's 8 rays from shared
+//    memory at each test (broadcasts), tested as independent chains with
+//    no branch (a dead ray passes no cluster test; its super test is
+//    masked by its liveness).  Per 32 supers, lane j pre-tests super
+//    s0 + j (sbounds, may_enter<false>) and a ballot gives the supers the
+//    group may enter; only those get cluster tests.  (The rays copied to
+//    registers took the pg frame 5% longer; PERF.md.)
 // 2. The group OR was a shuffle chain per super.  Now each lane tests one
 //    cluster against all of the group's rays, so the OR is the lane's
 //    own; the two halves of the warp take two entered supers at a time
@@ -42,9 +41,12 @@
 //    lane a different cluster, consecutive lanes consecutive clusters,
 //    so each load is two 64-byte segments), not staged: a block holds
 //    only a few groups, and the headline's 25 KB table stays in L1.
+//    (Staging the entered supers' cluster boxes per block and 32-super
+//    chunk in shared memory, two block barriers a chunk, took the pg
+//    frame 5-30% longer at every launch shape; PERF.md.)
 // 5. Few rays filled few SMs.  Launches of few groups take one group a
 //    warp, so a 4,096-ray launch is 512 warps over the card and its few
-//    live groups run side by side; large ones take four, whose rays load
+//    live groups run side by side; large ones take two, whose rays load
 //    together.
 //
 // Why the pre-test is exact in this form.  Rounding of box - o is
@@ -64,82 +66,7 @@ using namespace srt;
 
 constexpr int GROUP = 8;
 constexpr int MAX_WARPS = 16;  // warps a block, at most
-constexpr int CHUNK = 32;      // supers a pre-test pass (one a lane)
 
-// Variants, for sweep_cull_walk.py:
-// REG_RAYS: the group's rays copied to registers, else read from shared
-// memory at each test.  STAGE: the block culls chunk by chunk, its warps'
-// pre-tests naming the supers whose cluster boxes it stages in shared
-// memory (two block barriers a chunk), else each lane reads its cluster's
-// box from device memory through L1, each warp on its own.
-
-// The super pre-test of group gl (live rays `live`) against lane's super
-// (a, b), in the (box - o) * inv form.
-__device__ __forceinline__ bool group_enters(const float4* r, unsigned live,
-                                             const float4& a,
-                                             const float4& b) {
-  bool enter = false;
-#pragma unroll
-  for (int k = 0; k < GROUP; ++k) {
-    const float4 o = r[2 * k], iv = r[2 * k + 1];
-    enter |= ((live >> k) & 1u) &&
-             may_enter<false>(a, b, o.x, o.y, o.z, iv.x, iv.y, iv.z, o.w);
-  }
-  return enter;
-}
-
-// The chunk's words of one group: lanes < 16 test cluster lane & 15 of
-// entered super ja, lanes >= 16 of jb, each against the group's 8 rays;
-// one ballot holds both words.  Lane j returns super s0 + j's word.
-// box(j, k, &l, &h) gives cluster k of chunk super j.
-template <bool REG_RAYS, typename Box>
-__device__ __forceinline__ unsigned chunk_words(const float4* r,
-                                                unsigned todo, Box box) {
-  const int lane = threadIdx.x & 31;
-  float4 o[GROUP], iv[GROUP];  // (origin, t_max), reciprocals
-  if (REG_RAYS) {
-#pragma unroll
-    for (int k = 0; k < GROUP; ++k) {
-      o[k] = r[2 * k];
-      iv[k] = r[2 * k + 1];
-    }
-  }
-  unsigned word = 0;
-  while (todo) {  // warp-uniform
-    const int ja = __ffs(todo) - 1;
-    todo &= todo - 1;
-    const int jb = todo ? __ffs(todo) - 1 : -1;
-    todo &= todo - 1;
-    const int j = lane < 16 ? ja : jb;
-    bool occ = false;
-    if (j >= 0) {
-      float4 l;
-      float2 h;
-      box(j, lane & 15, &l, &h);
-#pragma unroll
-      for (int k = 0; k < GROUP; ++k) {
-        const float4 ok = REG_RAYS ? o[k] : r[2 * k];
-        const float4 ik = REG_RAYS ? iv[k] : r[2 * k + 1];
-        float sel;  // a dead ray (t_max <= 0) passes no test
-        occ |= slab<false>(l.x, l.y, l.z, l.w, h.x, h.y, ok.x, ok.y, ok.z,
-                           ik.x, ik.y, ik.z, ok.w, &sel);
-      }
-    }
-    const unsigned w = __ballot_sync(FULL, occ);
-    if (lane == ja) word = w & 0xffffu;
-    if (lane == jb) word = w >> 16;
-  }
-  return word;
-}
-
-__device__ __forceinline__ void super_box(const float* __restrict__ sb,
-                                          int S, int s, float4* a,
-                                          float4* b) {
-  *a = make_float4(sb[s], sb[S + s], sb[2 * S + s], sb[3 * S + s]);
-  *b = make_float4(sb[4 * S + s], sb[5 * S + s], 0.f, 0.f);
-}
-
-template <bool REG_RAYS>
 __global__ void __launch_bounds__(32 * MAX_WARPS)
     cull_gmask_kernel(const float* __restrict__ rays8,
                       const float* __restrict__ cb8, int stride,
@@ -161,90 +88,51 @@ __global__ void __launch_bounds__(32 * MAX_WARPS)
       for (int s = lane; s < S; s += 32) row[s] = 0;
       continue;
     }
-    const float4* r = rs + 2 * GROUP * gl;
-    for (int s0 = 0; s0 < S; s0 += CHUNK) {
+    const float4* r = rs + 2 * GROUP * gl;  // (origin, t_max), reciprocals
+    for (int s0 = 0; s0 < S; s0 += 32) {
       const int s = s0 + lane;
       bool enter = false;
       if (s < S) {
-        float4 a, b;
-        super_box(sb, S, s, &a, &b);
-        enter = group_enters(r, live, a, b);
+        const float4 a = make_float4(sb[s], sb[S + s], sb[2 * S + s],
+                                     sb[3 * S + s]);
+        const float4 b = make_float4(sb[4 * S + s], sb[5 * S + s], 0.f, 0.f);
+#pragma unroll
+        for (int k = 0; k < GROUP; ++k) {
+          const float4 o = r[2 * k], iv = r[2 * k + 1];
+          enter |= ((live >> k) & 1u) &&
+                   may_enter<false>(a, b, o.x, o.y, o.z, iv.x, iv.y, iv.z,
+                                    o.w);
+        }
       }
-      const unsigned word = chunk_words<REG_RAYS>(
-          r, __ballot_sync(FULL, enter),
-          [&](int j, int k, float4* l, float2* h) {
-            const int c = (s0 + j) * SUPER + k;
-            *l = make_float4(__ldg(cb8 + c), __ldg(cb8 + stride + c),
-                             __ldg(cb8 + 2 * stride + c),
-                             __ldg(cb8 + 3 * stride + c));
-            *h = make_float2(__ldg(cb8 + 4 * stride + c),
-                             __ldg(cb8 + 5 * stride + c));
-          });
+      unsigned todo = __ballot_sync(FULL, enter);
+      unsigned word = 0;
+      while (todo) {  // warp-uniform
+        const int ja = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const int jb = todo ? __ffs(todo) - 1 : -1;
+        todo &= todo - 1;
+        const int j = lane < 16 ? ja : jb;
+        bool occ = false;
+        if (j >= 0) {
+          const int c = (s0 + j) * SUPER + (lane & 15);
+          const float lx = __ldg(cb8 + c), ly = __ldg(cb8 + stride + c),
+                      lz = __ldg(cb8 + 2 * stride + c),
+                      hx = __ldg(cb8 + 3 * stride + c),
+                      hy = __ldg(cb8 + 4 * stride + c),
+                      hz = __ldg(cb8 + 5 * stride + c);
+#pragma unroll
+          for (int k = 0; k < GROUP; ++k) {
+            const float4 o = r[2 * k], iv = r[2 * k + 1];
+            float sel;  // a dead ray (t_max <= 0) passes no test
+            occ |= slab<false>(lx, ly, lz, hx, hy, hz, o.x, o.y, o.z, iv.x,
+                               iv.y, iv.z, o.w, &sel);
+          }
+        }
+        const unsigned w = __ballot_sync(FULL, occ);
+        if (lane == ja) word = w & 0xffffu;
+        if (lane == jb) word = w >> 16;
+      }
       if (s < S) row[s] = (int)word;
-    }
-  }
-}
-
-template <bool REG_RAYS>
-__global__ void __launch_bounds__(32 * MAX_WARPS)
-    cull_gmask_staged(const float* __restrict__ rays8,
-                      const float* __restrict__ cb8, int stride,
-                      const float* __restrict__ sb, int n_groups, int S,
-                      int gpw, int* __restrict__ mask) {
-  extern __shared__ float4 sh[];
-  __shared__ unsigned need[2];  // the chunk's supers some warp enters
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
-  float4* lo = sh;                                           // [CHUNK*16]
-  float2* hi = reinterpret_cast<float2*>(lo + CHUNK * SUPER);  // [CHUNK*16]
-  float4* rs = reinterpret_cast<float4*>(hi + CHUNK * SUPER) + warp * 64;
-  const size_t g0 = ((size_t)blockIdx.x * warps + warp) * gpw;
-  const int ng =
-      g0 < (size_t)n_groups ? (int)min((size_t)gpw, n_groups - g0) : 0;
-  const unsigned live_all =
-      stage_group_rays(rays8, g0 * GROUP, ng * GROUP, rs);
-  if (threadIdx.x < 2) need[threadIdx.x] = 0u;
-  __syncthreads();
-
-  for (int s0 = 0, p = 0; s0 < S; s0 += CHUNK, p ^= 1) {  // block-uniform
-    const int s = s0 + lane;
-    unsigned mine = 0;  // bit gl: group gl may enter super s
-    if (s < S) {
-      float4 a, b;
-      super_box(sb, S, s, &a, &b);
-      for (int gl = 0; gl < ng; ++gl) {
-        const unsigned live = (live_all >> (GROUP * gl)) & 0xffu;
-        if (live && group_enters(rs + 2 * GROUP * gl, live, a, b))
-          mine |= 1u << gl;
-      }
-    }
-    const unsigned any = __ballot_sync(FULL, mine != 0);
-    if (lane == 0 && any) atomicOr(&need[p], any);
-    __syncthreads();
-    const unsigned nd = need[p];
-    if (threadIdx.x == 0) need[p ^ 1] = 0u;
-    for (int i = threadIdx.x; i < CHUNK * SUPER; i += blockDim.x) {
-      if ((nd >> (i / SUPER)) & 1u) {
-        const int c = s0 * SUPER + i;
-        lo[i] = make_float4(__ldg(cb8 + c), __ldg(cb8 + stride + c),
-                            __ldg(cb8 + 2 * stride + c),
-                            __ldg(cb8 + 3 * stride + c));
-        hi[i] = make_float2(__ldg(cb8 + 4 * stride + c),
-                            __ldg(cb8 + 5 * stride + c));
-      }
-    }
-    __syncthreads();
-    for (int gl = 0; gl < ng; ++gl) {  // warp-uniform
-      const unsigned todo = __ballot_sync(FULL, (mine >> gl) & 1u);
-      const unsigned word =
-          todo ? chunk_words<REG_RAYS>(
-                     rs + 2 * GROUP * gl, todo,
-                     [&](int j, int k, float4* l, float2* h) {
-                       *l = lo[j * SUPER + k];
-                       *h = hi[j * SUPER + k];
-                     })
-               : 0u;
-      if (s < S) mask[(g0 + gl) * S + s] = (int)word;
     }
   }
 }
@@ -254,25 +142,18 @@ __global__ void __launch_bounds__(32 * MAX_WARPS)
 extern "C" int srt_cull_gmask(const float* rays8, const float* cb8,
                               int stride, const float* sbounds, int n_rays,
                               int S, int groups_per_warp, int warps_per_block,
-                              int variant, int* mask, void* stream) {
+                              int* mask, void* stream) {
   if (groups_per_warp < 1 || groups_per_warp > 32 / GROUP ||
-      warps_per_block < 1 || warps_per_block > MAX_WARPS || variant < 0 ||
-      variant > 3)
+      warps_per_block < 1 || warps_per_block > MAX_WARPS)
     return (int)cudaErrorInvalidValue;
   const int n_groups = n_rays / GROUP;
   const int n_warps = (n_groups + groups_per_warp - 1) / groups_per_warp;
   const int grid = (n_warps + warps_per_block - 1) / warps_per_block;
-  const size_t rays = (size_t)warps_per_block * 2 * 32 * sizeof(float4);
-  const size_t boxes = CHUNK * SUPER * (sizeof(float4) + sizeof(float2));
-  // variant: bit 0 rays in registers, bit 1 staged boxes.
-  const auto kernel =
-      variant == 0   ? cull_gmask_kernel<false>
-      : variant == 1 ? cull_gmask_kernel<true>
-      : variant == 2 ? cull_gmask_staged<false>
-                     : cull_gmask_staged<true>;
-  const size_t smem = rays + (variant >= 2 ? boxes : 0);
+  const size_t smem = (size_t)warps_per_block * 2 * 32 * sizeof(float4);
   if (grid > 0 && S > 0)
-    kernel<<<grid, 32 * warps_per_block, smem, (cudaStream_t)stream>>>(
-        rays8, cb8, stride, sbounds, n_groups, S, groups_per_warp, mask);
+    cull_gmask_kernel<<<grid, 32 * warps_per_block, smem,
+                        (cudaStream_t)stream>>>(rays8, cb8, stride, sbounds,
+                                                n_groups, S, groups_per_warp,
+                                                mask);
   return (int)cudaGetLastError();
 }

@@ -54,8 +54,8 @@ SIGNATURES = {
     "srt_pgwalk2": _WALK_B4 + [_P],
     "srt_pgwalk2_stream": _WALK_B4 + [_P],
     "srt_threefry": [_P, _P, _I, _U, _I, _U, _I, _P, _P],
-    "srt_cull_perray": [_P, _P, _I, _I, _P, _P],
-    "srt_cull_gmask": [_P, _P, _I, _I, _I, _P, _P],
+    "srt_cull_perray": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "srt_cull_gmask": [_P, _P, _I, _P, _I, _I, _I, _I, _P, _P],
     "srt_pgwalk": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                    _P],
 }

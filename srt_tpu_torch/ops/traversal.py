@@ -680,22 +680,22 @@ def cull_perray_plain(rays8, sbounds):
 
 
 # B5/B6 launch shape (``csrc/cull_perray.cu``, ``csrc/cull_gmask.cu``): a
-# warp takes CULL_WARP_GROUPS consecutive 8-ray groups, or one on launches
-# of fewer than CULL_FILL groups per SM (so that the few live groups of a
-# small launch run side by side); CULL_BLOCK_WARPS warps a block.  Chosen
-# with sweep_cull_walk.py on the binned and pg frames' launches.
+# warp takes CULL_WARP_GROUPS (B5) or CULL_GMASK_WARP_GROUPS (B6)
+# consecutive 8-ray groups, or one on launches of fewer than CULL_FILL
+# groups per SM (so that the few live groups of a small launch run side by
+# side); CULL_BLOCK_WARPS warps a block.  Chosen with sweep_cull_walk.py
+# on the binned and pg frames' launches.
 CULL_WARP_GROUPS = 4
+CULL_GMASK_WARP_GROUPS = 2
 CULL_FILL = 128
 CULL_BLOCK_WARPS = 4
-# B6's variant (csrc/cull_gmask.cu): bit 0 the group's rays in registers,
-# bit 1 the cluster boxes staged in shared memory.
-CULL_GMASK_VARIANT = 1
 
 
-def group_cull_shape(n_groups: int, sms: int):
+def group_cull_shape(n_groups: int, sms: int, groups: int):
     """(groups per warp, warps per block) of a B5 or B6 launch of
-    ``n_groups`` 8-ray groups on a card of ``sms`` SMs."""
-    gpw = CULL_WARP_GROUPS if n_groups >= sms * CULL_FILL else 1
+    ``n_groups`` 8-ray groups on a card of ``sms`` SMs, the kernel taking
+    ``groups`` a warp on large launches."""
+    gpw = groups if n_groups >= sms * CULL_FILL else 1
     return gpw, CULL_BLOCK_WARPS
 
 
@@ -708,7 +708,8 @@ def cull_perray(rays8, sbounds, plain: bool = False):
     e = torch.empty((npad // GROUP, s), dtype=torch.float32,
                     device=rays8.device)
     _launch("cull_perray", _f32(rays8), _f32(sbounds), npad, s,
-            *group_cull_shape(npad // GROUP, _sm_count(rays8.device)), e)
+            *group_cull_shape(npad // GROUP, _sm_count(rays8.device),
+                              CULL_WARP_GROUPS), e)
     return e
 
 
@@ -786,8 +787,8 @@ def cull_gmask(rays8, cb8, s_count: int, sbounds, plain: bool = False):
     cb8 = _f32(cb8)
     _launch("cull_gmask", _f32(rays8), cb8, cb8.shape[1], _f32(sbounds),
             npad, s_count,
-            *group_cull_shape(npad // GROUP, _sm_count(rays8.device)),
-            CULL_GMASK_VARIANT, mask)
+            *group_cull_shape(npad // GROUP, _sm_count(rays8.device),
+                              CULL_GMASK_WARP_GROUPS), mask)
     return mask
 
 

@@ -21,8 +21,9 @@ launch reaches ``traversal.INTERSECT_FILL`` threads per SM (1 << 30
 never limits); B7's groups per tile, lanes per ray (on launches that fill
 the card, and on those below ``PGWALK_FILL`` threads per SM), least chunk
 and work items per SM (``traversal.PGWALK_*``); B5's and B6's groups per
-warp, the launch size below which a warp takes one group, and warps per
-block (``CULL_WARP_GROUPS``, ``CULL_FILL``, ``CULL_BLOCK_WARPS``).  Every
+warp, the launch size below which a warp takes one group (0: never), and
+warps per block (``CULL_WARP_GROUPS``, ``CULL_GMASK_WARP_GROUPS``,
+``CULL_FILL``, ``CULL_BLOCK_WARPS``).  Every
 choice's output must equal the plain version's.  Prints one line per
 call and choice, and the per-frame sums by choice; the choice the
 wrappers use is marked.
@@ -50,10 +51,10 @@ _GC = dict(CULL_WARP_GROUPS=4, CULL_FILL=128, CULL_BLOCK_WARPS=4)
 _GROUP_CULL = ([dict(_GC, CULL_WARP_GROUPS=gpw) for gpw in (4, 1, 2)]
                + [dict(_GC, CULL_FILL=fill) for fill in (0, 32, 512)]
                + [dict(_GC, CULL_BLOCK_WARPS=w) for w in (2, 8)])
-_GMASK = ([dict(choice, CULL_GMASK_VARIANT=1) for choice in _GROUP_CULL]
-          + [dict(choice, CULL_GMASK_VARIANT=v) for v in (0, 3, 2)
-             for choice in _GROUP_CULL[:4] + [
-                 dict(_GC, CULL_BLOCK_WARPS=w) for w in (2, 8, 16)]])
+_GM = dict(CULL_GMASK_WARP_GROUPS=2, CULL_FILL=128, CULL_BLOCK_WARPS=4)
+_GMASK = ([dict(_GM, CULL_GMASK_WARP_GROUPS=gpw) for gpw in (2, 1, 4)]
+          + [dict(_GM, CULL_FILL=fill) for fill in (0, 32, 512)]
+          + [dict(_GM, CULL_BLOCK_WARPS=w) for w in (2, 8)])
 CHOICES = {"cull": [dict(CULL_RAYS_PER_THREAD=rpt) for rpt in (1, 2)],
            "intersect": _WALK, "intersect_stream": _WALK,
            "pgwalk": _PGWALK,

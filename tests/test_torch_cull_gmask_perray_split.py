@@ -5,7 +5,7 @@ Each kernel's order of work is written out here as a plain PyTorch twin
 and held against the port's plain version and the interpret-mode Pallas
 launch, bit for bit:
 
-* B6 takes one warp per group of 8 rays (or per four consecutive groups,
+* B6 takes one warp per group of 8 rays (or per two consecutive groups,
   one after the other).  Each lane pre-tests a super's box (``sbounds``)
   against the group's live rays in the ``(box - o) * inv`` form, a NaN
   super test counting as entering; the group runs the 16 cluster tests of
@@ -259,8 +259,10 @@ def test_group_cull_shape_on_the_frames_launches(n_rays, many):
     """On 132 SMs, the binned and pg frames' 4,096-ray launches (a few
     live groups among 512) take one group a warp, so the live ones run
     side by side; their 745,472- and 1,048,576-ray launches take
-    ``CULL_WARP_GROUPS``, whose rays load together.  A warp's groups are
-    at most its 32 lanes' rays, a block at most 16 warps."""
-    gpw, warps = tr.group_cull_shape(n_rays // GROUP, 132)
-    assert gpw == (tr.CULL_WARP_GROUPS if many else 1)
-    assert 1 <= gpw * GROUP <= 32 and 1 <= warps <= 16
+    ``CULL_WARP_GROUPS`` (B5) or ``CULL_GMASK_WARP_GROUPS`` (B6), whose
+    rays load together.  A warp's groups are at most its 32 lanes' rays,
+    a block at most 16 warps."""
+    for groups in (tr.CULL_WARP_GROUPS, tr.CULL_GMASK_WARP_GROUPS):
+        gpw, warps = tr.group_cull_shape(n_rays // GROUP, 132, groups)
+        assert gpw == (groups if many else 1)
+        assert 1 <= gpw * GROUP <= 32 and 1 <= warps <= 16
