@@ -64,11 +64,32 @@ Phases, one line each; the last line is printed only when all pass:
    pair branch must be taken; (c) the same with ``"pg"``; (d)
    ``model_hit(binned=True, pair_factor=1)`` on the bounce rays falls
    back once and equals the tiled walk exactly.
+9. The scan integrator (``pathtracer.render``: every bounce at the full
+   width, no compaction), ``bench_suite.py``'s forward passes.  (a)
+   config1: the default sphere scene, 256x256, 2 bounces, from one
+   injected uniform array (numpy seed 1) through ``trace_with_uniforms``
+   on the card and on the CPU: equal stats, >= 99.5% of pixels within
+   rtol 1e-4 / atol 1e-5; max |err| and the share of pixels that differ.
+   (b) config2: ``render_spheres``, 512x512, spp 16, 4 bounces: one
+   untimed and 3 timed frames, Mrays/s with config2's accounting (size^2
+   x spp x 4 x 2 over the time).  (c) config6: the headline mesh
+   (101,760 triangles), 256x256, 2 bounces, bounce re-sort, through
+   ``render(mesh_hit_fn(scene, method="walk"))``: one untimed frame whose
+   every launch is replayed through its plain version and timed beside its
+   bound, its rays traced (the same sample's stats), then 3 timed frames;
+   B1, B2 and threefry launched.  (d) config3: ``rubik_grid()``, 512x512,
+   camera (0, 20, 20) toward (0, 1, -1), 4 bounces, ``mesh_hit_fn(scene,
+   ray_tile=8192)`` (the walk ignores ``ray_tile``, as JAX's does): as
+   (c); one supercluster, so B2 and threefry and no B1.  (e) a 256x256
+   frame of the sphere scene and the headline mesh through
+   ``union_hit_fn``, every launch replayed as in (c): finite, unlike
+   either part alone, B1, B2 and threefry launched.  The phase prints its
+   seconds.
 
 Each path (the headline frames, the config8 frames, the counter run, the
-binned frames, the pg frames) is driven with the launch counts set to 0
-just before it and read just after; every kernel must be launched by its
-path.  Each replayed B4/B4s launch also prints its groups, the clusters
+binned frames, the pg frames, the scan frames of phase 9) is driven with
+the launch counts set to 0 just before it and read just after; every
+kernel must be launched by its path.  Each replayed B4/B4s launch also prints its groups, the clusters
 its lists name and the split P its wrapper chose; each B7 launch its
 groups with work, set bits, tile size K, lanes L, chunk and work items;
 each B1 launch its S and live rays; each B3 launch its
@@ -89,8 +110,8 @@ wrapper time is the host's dispatch.  Plain versions are timed around
 one call.
 
 ``--profile PATH`` also writes ``torch.profiler`` tables of one more
-frame of each render (headline, config8, binned, pg) to PATH (the source
-of PERF.md section 5).
+frame of each render (headline, config8, binned, pg, and phase 9's
+config2, config6 and config3) to PATH (the source of PERF.md section 5).
 """
 
 from __future__ import annotations
@@ -137,11 +158,26 @@ COUNTER_PATH = ("intersect_count",)
 BINNED_PATH = ("cull", "intersect", "cull_perray", "threefry")
 PG_PATH = ("cull", "intersect", "cull_gmask", "pgwalk", "threefry")
 HEADLINE_CAMERA = dict(origin=(0.0, 1.0, 5.0), look_at=(0.0, 0.0, 0.0))
+# The scan integrator's paths (phase 9).  A one-super model (the Rubik
+# grid: 384 triangles, 3 clusters) takes the trivial cluster list and no
+# B1 launch, as the JAX package's dispatch does
+# (srt_tpu/ops/traversal_pallas.py:1689).
+SCAN_MESH_PATH = ("cull", "intersect", "threefry")
+ONE_SUPER_PATH = ("intersect", "threefry")
+SPHERE_PATH = ("threefry",)
+CONFIG3_CAMERA = dict(origin=(0.0, 20.0, 20.0), look_at=(0.0, 1.0, -1.0))
+UNION_CAMERA = dict(origin=(0.0, 2.0, 5.0), look_at=(0.0, 0.0, -2.0))
 # Sizes: scenes (uv_sphere rows, cols), frame widths, kernel-case rays,
 # threefry block columns.
 HEADLINE_SPHERE, CONFIG8_SPHERE = (160, 320), (360, 700)
 HEADLINE_SIZE, CONFIG8_SIZE = 1024, 512
 CASE_RAYS, THREEFRY_COLS = 65536, 1 << 20
+# Phase 9 (bench_suite.py's config1, config2, config6 and config3 forward
+# passes through the scan integrator, and the union frame): image sizes,
+# config2's samples per pixel, config3's ray chunk, timed frames.
+CONFIG1_SIZE, CONFIG2_SIZE, CONFIG2_SPP = 256, 512, 16
+CONFIG6_SIZE, CONFIG3_SIZE, UNION_SIZE = 256, 512, 256
+CONFIG3_RAY_TILE, SCAN_FRAMES = 8192, 3
 # Rays of the few-group B4/B4s cases (8 groups at G = 32), and the list
 # entries B4 stages in shared memory (LIST_SH, csrc/pgwalk2.cu).
 FEW_RAYS, LIST_STAGED = 256, 256
@@ -832,17 +868,18 @@ def recorded_launches():
             setattr(kernel_module(name), name, fn)
 
 
-def replay_frame(tag, plan, cases, key):
-    """Render one untimed frame recording every kernel launch, replay each
-    through its plain version, and time each launch again on its recorded
-    inputs (device time, ``device_median`` of 3, and wrapper time, CUDA
-    events around one call, median of 5) beside its bound; prints the
-    per-frame sums by kernel and returns the set of kernels launched."""
+def replay_frame(tag, frame, cases):
+    """Render one untimed frame (``frame()``) recording every kernel
+    launch, replay each through its plain version, and time each launch
+    again on its recorded inputs (device time, ``device_median`` of 3, and
+    wrapper time, CUDA events around one call, median of 5) beside its
+    bound; prints the per-frame sums by kernel and returns the set of
+    kernels launched."""
     import torch
 
     from srt_tpu_torch.ops import traversal as tr
     with recorded_launches() as calls:
-        plan.render(key)
+        frame()
     torch.cuda.synchronize()
     per_frame = {}
     for k, (name, args, k_out) in enumerate(calls):
@@ -914,6 +951,18 @@ def replay_frame(tag, plan, cases, key):
     return set(per_frame)
 
 
+def check_image(label, img, size):
+    """A [size, size, 3] image of finite pixels with a plausible mean;
+    returns the mean."""
+    import torch
+    check(tuple(img.shape) == (size, size, 3), f"{label}: image shape "
+                                               f"{tuple(img.shape)}")
+    check(bool(torch.isfinite(img).all()), f"{label}: non-finite pixels")
+    mean = float(img.mean())
+    check(1e-4 < mean < 10.0, f"{label}: image mean {mean} out of range")
+    return mean
+
+
 def timed_frames(tag, plan, cases, path, size, label, after_frame=None):
     """Ten timed frames (keys 1..10) with the launch counts zeroed just
     before and read just after; checks and prints the frame results.
@@ -941,10 +990,7 @@ def timed_frames(tag, plan, cases, path, size, label, after_frame=None):
         check(launches[name] > 0, f"kernel {name} never launched by the "
                                   f"{label} path")
         cases.results[name].setdefault("launches", launches[name])
-    check(tuple(img.shape) == (size, size, 3), f"image shape {img.shape}")
-    check(bool(torch.isfinite(img).all()), f"{label}: non-finite pixels")
-    mean = float(img.mean())
-    check(1e-4 < mean < 10.0, f"{label}: image mean {mean} out of range")
+    mean = check_image(label, img, size)
     dt = sum(times) / len(times)
     rays = int(stats.sum())
     print(f"[{tag}] stats per bounce (traced, shadow): {stats.tolist()}, "
@@ -957,18 +1003,16 @@ def timed_frames(tag, plan, cases, path, size, label, after_frame=None):
     return launches, dt
 
 
-def profile_frame(plan, label, frame_s, path):
-    """Append a torch.profiler table of one more frame to ``path`` and
-    print the device time against the mean frame time."""
+def profile_frame(frame, label, frame_s, path):
+    """Append a torch.profiler table of one more frame (``frame()``) to
+    ``path`` and print the device time against the mean frame time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
-    from srt_tpu_torch.ops import rng
-    dev = plan.lights.position.device
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
-        plan.render(rng.key(99, dev))
+        frame()
         torch.cuda.synchronize()
     avgs = prof.key_averages()
     # Device rows only, as the table's own total counts them (the CPU op
@@ -1008,14 +1052,15 @@ def phase_render(scene, cases, profile):
           flush=True)
     # One untimed frame (as bench.py renders first), recording every
     # kernel launch; each is then replayed through its plain version.
-    launched = replay_frame(4, plan, cases, rng.key(0, dev))
+    launched = replay_frame(4, lambda: plan.render(rng.key(0, dev)), cases)
     check(launched == set(HEADLINE_PATH),
           f"the untimed headline frame launched {sorted(launched)}")
     _, dt = timed_frames(4, plan, cases, HEADLINE_PATH, HEADLINE_SIZE,
                          f"headline ({scene.model_tri_count[0]}-tri uv_sphere, "
                          f"{HEADLINE_SIZE}x{HEADLINE_SIZE}, spp 1, 4 bounces)")
     if profile:
-        profile_frame(plan, "headline", dt, profile)
+        profile_frame(lambda: plan.render(rng.key(99, dev)), "headline", dt,
+                      profile)
     return plan
 
 
@@ -1165,7 +1210,7 @@ def phase_config8(scene8, headline, cases, profile):
     print(f"[6c] plan: probe + schedule discovery "
           f"{time.perf_counter() - t0:.3f} s, schedule {plan.schedule}",
           flush=True)
-    launched = replay_frame("6c", plan, cases, rng.key(0, dev))
+    launched = replay_frame("6c", lambda: plan.render(rng.key(0, dev)), cases)
     check(launched == set(CONFIG8_PATH),
           f"the untimed config8 frame launched {sorted(launched)}")
     launches, dt = timed_frames(
@@ -1175,7 +1220,8 @@ def phase_config8(scene8, headline, cases, profile):
     check(launches["intersect"] == 0 and launches["pgwalk2"] == 0,
           f"the config8 frames launched resident walks: {launches}")
     if profile:
-        profile_frame(plan, "config8", dt, profile)
+        profile_frame(lambda: plan.render(rng.key(99, dev)), "config8", dt,
+                      profile)
 
 
 def phase_counters(scenes, cases):
@@ -1353,7 +1399,7 @@ def walk_render(tag, scene, cases, walk, path, profile):
     print(f"[{tag}] plan walks=tiled@256,{walk} walks_shadow={walk}: probe "
           f"+ schedule discovery {time.perf_counter() - t0:.3f} s, schedule "
           f"{plan.schedule}", flush=True)
-    launched = replay_frame(tag, plan, cases, rng.key(0, dev))
+    launched = replay_frame(tag, lambda: plan.render(rng.key(0, dev)), cases)
     check(launched == set(path),
           f"the untimed {walk} frame launched {sorted(launched)}")
     with pair_log() as log:
@@ -1375,7 +1421,8 @@ def walk_render(tag, scene, cases, walk, path, profile):
         check(launches["binned_pairs"] > 0,
               "no binned walk call took the pair branch")
     if profile:
-        profile_frame(plan, f"headline {walk}", dt, profile)
+        profile_frame(lambda: plan.render(rng.key(99, dev)),
+                      f"headline {walk}", dt, profile)
 
 
 def phase_binned(scene, cases, profile):
@@ -1401,6 +1448,199 @@ def phase_binned(scene, cases, profile):
     print(f"[8d] model_hit(binned=True, pair_factor=1) on {bo.shape[1]} "
           f"bounce rays: one fallback, equal to the tiled walk "
           f"({int((ref[1] >= 0).sum())} hits)  [{cases.card}]", flush=True)
+
+
+def image_agreement(a, b):
+    """(share of pixels within rtol 1e-4 / atol 1e-5, max |a - b|) of two
+    [H, W, 3] images: the port's image criterion."""
+    import torch
+    close = torch.isclose(a, b, rtol=1e-4, atol=1e-5).all(-1)
+    return float(close.float().mean()), float((a - b).abs().max())
+
+
+def scan_frames(tag, label, frame, dev, path, size, rays, card):
+    """``SCAN_FRAMES`` timed frames (``frame(key)``, keys 1..) with the
+    launch counts zeroed just before and read just after: every kernel of
+    ``path`` launched, a finite image; Mrays/s of ``rays`` a frame."""
+    import torch
+
+    from srt_tpu_torch.ops import rng
+    from srt_tpu_torch.ops import traversal as tr
+    tr.reset_launch_counts()
+    times = []
+    for i in range(SCAN_FRAMES):
+        key = rng.key(i + 1, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = frame(key)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {k: v for k, v in tr.launch_counts.items() if v}
+    for name in path:
+        check(launches.get(name, 0) > 0, f"kernel {name} never launched by "
+                                          f"the {label} path")
+    mean = check_image(label, img, size)
+    dt = sum(times) / len(times)
+    print(f"[{tag}] {label}: frame times (s) "
+          f"{[round(t, 6) for t in times]}, mean {dt * 1e3:.3f} ms, "
+          f"{rays / dt / 1e6:.4f} Mrays/s ({rays} rays a frame), image "
+          f"mean {mean:.6f}, launches in {SCAN_FRAMES} frames {launches}  "
+          f"[{card}]", flush=True)
+    return dt
+
+
+def scan_mesh_render(tag, label, hit, lights, cam, cfg, path, cases,
+                     profile):
+    """Phases 9c, 9d: a mesh frame through ``pathtracer.render``: one
+    untimed frame whose every kernel launch is replayed through its plain
+    version and timed beside its bound, its rays traced (the same sample
+    through ``trace_image_sample``'s stats, equal image), then
+    ``SCAN_FRAMES`` timed frames."""
+    import torch
+
+    from srt_tpu_torch.models import pathtracer
+    from srt_tpu_torch.ops import rng
+    dev = lights.position.device
+    key0 = rng.key(0, dev)
+    out = []
+    launched = replay_frame(
+        tag, lambda: out.append(pathtracer.render(hit, lights, cam, cfg,
+                                                  key0)),
+        cases)
+    check(launched == set(path),
+          f"the untimed {label} frame launched {sorted(launched)}")
+    n = cam.width * cam.height
+    img, stats = pathtracer.trace_image_sample(
+        hit, lights, cam, cfg, rng.KeyStream(rng.fold_in(key0, 0), n),
+        return_stats=True)
+    check(torch.equal(img, out[0]), f"{label}: render and its sample 0 "
+                                    f"differ")
+    rays = int(stats.sum())
+    print(f"[{tag}] {label}: stats per bounce (traced, shadow) "
+          f"{stats.tolist()}", flush=True)
+    dt = scan_frames(tag, label, lambda k: pathtracer.render(
+        hit, lights, cam, cfg, k), dev, path, cam.width, rays, cases.card)
+    if profile:
+        profile_frame(lambda: pathtracer.render(hit, lights, cam, cfg,
+                                                rng.key(99, dev)),
+                      f"{label} (scan)", dt, profile)
+
+
+def phase_scan(scene, cases, profile, dev):
+    """Phase 9: the scan integrator (``pathtracer.render``): config1,
+    config2's, config6's and config3's forward passes and a union frame."""
+    import torch
+
+    from srt_tpu_torch.config import CameraConfig, RenderConfig
+    from srt_tpu_torch.models import mesh, pathtracer
+    from srt_tpu_torch.ops import rng
+    from srt_tpu_torch.ops import traversal as tr
+    from srt_tpu_torch.scene import (default_sphere_scene,
+                                     model_scene_lights, sphere_scene_lights)
+    from srt_tpu_torch.utils.flatten import flatten_models
+    from srt_tpu_torch.utils.procgen import rubik_grid
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+
+    # (a) config1: 2 bounces from one injected uniform array, the card
+    # against the port's own CPU run.
+    size = CONFIG1_SIZE
+    cam = CameraConfig(width=size, height=size)
+    cfg = RenderConfig(max_depth=2, rr_bounces=0)
+    u = rng.host_uniforms(1, size * size, rng.total_slots(2, 2))
+    got = {}
+    for d in (dev, cpu):
+        hit = pathtracer.spheres_hit_fn(default_sphere_scene(d))
+        lights = sphere_scene_lights(d)
+        ut = torch.as_tensor(u, device=d)
+        img = pathtracer.trace_with_uniforms(hit, lights, cam, cfg, ut)
+        _, stats = pathtracer.trace_image_sample(
+            hit, lights, cam, cfg, rng.ArrayStream(ut), return_stats=True)
+        got[d.type] = (img.cpu(), stats.cpu())
+    (img_d, st_d), (img_c, st_c) = got[dev.type], got["cpu"]
+    check(torch.equal(st_d, st_c), f"config1 stats: card {st_d.tolist()}, "
+                                   f"CPU {st_c.tolist()}")
+    check_image("config1", img_d, size)
+    share, err = image_agreement(img_d, img_c)
+    check(share >= 0.995, f"config1: {100 * share:.3f}% of pixels within "
+                          f"rtol 1e-4 / atol 1e-5 of the CPU run")
+    print(f"[9a] config1 spheres {size}x{size}, 2 bounces, injected "
+          f"uniforms: card vs CPU stats equal {st_d.tolist()}, max |err| "
+          f"{err}, {100 * (1 - share):.4f}% of pixels differ beyond rtol "
+          f"1e-4 / atol 1e-5  [{cases.card}]", flush=True)
+
+    # (b) config2's forward pass: 16 samples a pixel, 4 bounces.
+    size, spp = CONFIG2_SIZE, CONFIG2_SPP
+    spheres, lights = default_sphere_scene(dev), sphere_scene_lights(dev)
+    cam = CameraConfig(width=size, height=size)
+    cfg = RenderConfig(max_depth=4, rr_bounces=0, spp=spp)
+
+    def config2(key):
+        return pathtracer.render_spheres(spheres, lights, cam, cfg, key)
+
+    config2(rng.key(0, dev))
+    label = f"config2 spheres {size}x{size} spp {spp} 4 bounces"
+    dt = scan_frames("9b", label, config2, dev, SPHERE_PATH, size,
+                     size * size * spp * cfg.max_depth * 2, cases.card)
+    if profile:
+        profile_frame(lambda: config2(rng.key(99, dev)), label, dt, profile)
+
+    # (c) config6's forward pass through the scan: the headline mesh.
+    cam = CameraConfig(width=CONFIG6_SIZE, height=CONFIG6_SIZE,
+                       **HEADLINE_CAMERA)
+    cfg = RenderConfig(max_depth=2, rr_bounces=0, sort_bounces=True)
+    scan_mesh_render(
+        "9c", f"config6 ({scene.model_tri_count[0]}-tri uv_sphere, "
+        f"{CONFIG6_SIZE}x{CONFIG6_SIZE}, 2 bounces)",
+        mesh.mesh_hit_fn(scene, method="walk"), model_scene_lights(dev), cam,
+        cfg, SCAN_MESH_PATH, cases, profile)
+
+    # (d) config3's forward pass: the Rubik grid, config3's ray_tile (the
+    # walk ignores it, as JAX's does: one walk a query).
+    rubik = mesh.upload(flatten_models([rubik_grid()], pad_to=128), dev)
+    cam = CameraConfig(width=CONFIG3_SIZE, height=CONFIG3_SIZE,
+                       **CONFIG3_CAMERA)
+    cfg = RenderConfig(max_depth=4, rr_bounces=0)
+    scan_mesh_render(
+        "9d", f"config3 (rubik_grid, {rubik.num_triangles} triangles, "
+        f"{rubik.woop.shape[0]} clusters, {CONFIG3_SIZE}x{CONFIG3_SIZE}, "
+        f"4 bounces, ray_tile {CONFIG3_RAY_TILE})",
+        mesh.mesh_hit_fn(rubik, ray_tile=CONFIG3_RAY_TILE),
+        model_scene_lights(dev), cam, cfg, ONE_SUPER_PATH, cases, profile)
+
+    # (e) the sphere scene and the headline mesh (50 supers) in one scene:
+    # shadow rays from sphere hits reach B1 and B2 with a finite t_max.
+    spheres_only = pathtracer.spheres_hit_fn(spheres)
+    mesh_only = mesh.mesh_hit_fn(scene, method="walk")
+    union = pathtracer.union_hit_fn(spheres_only, mesh_only)
+    cam = CameraConfig(width=UNION_SIZE, height=UNION_SIZE, **UNION_CAMERA)
+    cfg = RenderConfig(max_depth=2, rr_bounces=0)
+    key0 = rng.key(0, dev)
+    out, launches = [], {}
+
+    def union_frame():
+        tr.reset_launch_counts()
+        out.append(pathtracer.render(union, lights, cam, cfg, key0))
+        launches.update((k, v) for k, v in tr.launch_counts.items() if v)
+
+    launched = replay_frame("9e", union_frame, cases)
+    check(launched == set(SCAN_MESH_PATH),
+          f"the union frame launched {sorted(launched)}")
+    img = out[0]
+    mean = check_image("union", img, UNION_SIZE)
+    covered = [float(((img - pathtracer.render(alone, lights, cam, cfg, key0))
+                      .abs().amax(-1) > 0).float().mean())
+               for alone in (spheres_only, mesh_only)]
+    check(min(covered) > 0.01, f"union: differs from the spheres alone and "
+                               f"the mesh alone on {covered} of pixels")
+    print(f"[9e] union of the sphere scene and the headline mesh, "
+          f"{UNION_SIZE}x{UNION_SIZE}, 2 bounces: image mean {mean:.6f}, "
+          f"{100 * covered[0]:.2f}% of pixels differ from the spheres alone "
+          f"and {100 * covered[1]:.2f}% from the mesh alone, launches "
+          f"{launches}  [{cases.card}]", flush=True)
+    print(f"[9] scan phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
 
 
 def main(argv=None) -> int:
@@ -1470,6 +1710,7 @@ def main(argv=None) -> int:
                     "config8": (scene8, CONFIG8_SIZE)}, cases)
     del scene8
     phase_binned(scene, cases, args.profile)
+    phase_scan(scene, cases, args.profile, dev)
 
     # Each kernel's first case, or its LINE_CASES case: device ms, plain ms
     # and bound of one call.  No single PyTorch call computes a cull, a
@@ -1487,7 +1728,7 @@ def main(argv=None) -> int:
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
             library_ms=None))
-    print(f"[9] all phases passed in {time.perf_counter() - t_start:.1f} s",
+    print(f"[10] all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

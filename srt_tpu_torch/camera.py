@@ -39,16 +39,20 @@ def camera_basis(origin, look_at, v_up):
     return right, up, -front
 
 
-def derive_viewport(cfg: CameraConfig, device=None) -> Viewport:
+def derive_viewport(cfg: CameraConfig, origin=None, look_at=None,
+                    device=None) -> Viewport:
     """Build the Viewport from a CameraConfig (``GetCamera`` analog) on
-    ``device`` (None: the card, ``devices.resolve``)."""
+    ``device`` (None: the card, ``devices.resolve``).  ``origin`` /
+    ``look_at`` ([3] tensors or sequences, for example a camera pose that
+    takes gradients) override the config's."""
     device = resolve(device)
 
     def vec3(x):
         return torch.as_tensor(x, dtype=torch.float32, device=device)
 
-    origin = vec3(cfg.origin)
-    u, v, w = camera_basis(origin, vec3(cfg.look_at), vec3(cfg.v_up))
+    origin = vec3(cfg.origin if origin is None else origin)
+    look_at = vec3(cfg.look_at if look_at is None else look_at)
+    u, v, w = camera_basis(origin, look_at, vec3(cfg.v_up))
 
     if cfg.viewport_mode == "reference":
         view_u = u * cfg.focus_dist

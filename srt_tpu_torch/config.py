@@ -69,3 +69,22 @@ class RenderConfig:
     primary_spread: float = 0.0
     cone_diffuse_spread: float = 0.35
     cone_spec_spread: float = 0.25
+
+
+# Reference defaults (src/main.cpp:137-138, raytrace_compute.glsl:366-384).
+REFERENCE_WIDTH = 1000
+REFERENCE_HEIGHT = 800
+
+SPHERES_CAMERA = CameraConfig(
+    width=REFERENCE_WIDTH,
+    height=REFERENCE_HEIGHT,
+    origin=(0.0, 0.0, 0.0),
+    look_at=(0.0, 0.0, -1.0),
+)
+
+MODEL_CAMERA = CameraConfig(
+    width=REFERENCE_WIDTH,
+    height=REFERENCE_HEIGHT,
+    origin=(0.0, 20.0, 20.0),
+    look_at=(0.0, 1.0, -1.0),
+)

@@ -232,14 +232,34 @@ def default_kernel_tile(scene: MeshScene) -> int:
     return 128 if n_superclusters(scene) > 8 else traversal.DEFAULT_TILE
 
 
-def mesh_hit_fn(scene: MeshScene, method: str = "walk", kernel_tile: int = 0,
-                binned=False, binned_anyhit=None, plain: bool = False):
+def _cat_hits(parts):
+    """Concatenate per-chunk ``Hit`` records along the ray axis."""
+    def cat(xs):
+        return None if xs[0] is None else torch.cat(xs, dim=-1)
+
+    mats = [h.mat for h in parts]
+    return Hit(**{
+        f.name: cat([getattr(h, f.name) for h in parts])
+        for f in dataclasses.fields(Hit) if f.name != "mat"},
+        mat=Materials(**{f.name: cat([getattr(m, f.name) for m in mats])
+                         for f in dataclasses.fields(Materials)}))
+
+
+def mesh_hit_fn(scene: MeshScene, method: str = "walk",
+                flip_normals: bool = True, ray_tile: int = 0,
+                kernel_tile: int = 0, binned=False, binned_anyhit=None,
+                plain: bool = False):
     """The integrator's closest-hit callable ``hit_fn(origins, dirs, t_min,
     t_max, any_hit=False) -> Hit`` for a mesh scene: per-model frame
     transform, traversal bounded by the running closest t across models,
     exact Moller-Trumbore refine of the winner, smooth-normal blend, the
-    normal flipped to face the ray, and the winning triangle's material.
+    normal flipped to face the ray (``flip_normals``; False keeps the
+    interpolated normal as it is), and the winning triangle's material.
 
+    ``ray_tile > 0`` traces the rays in chunks of that many, one after the
+    other (it bounds the dense sweep's working set); the result is the
+    same bit for bit.  The walk ignores it: its kernels tile rays
+    themselves.
     ``kernel_tile`` is the tiled walk's rays per tile (0:
     ``default_kernel_tile``); ``binned`` selects the closest-hit walk
     (False = tiled, True = pair-binned, ``"pg"`` = mask-scan,
@@ -257,6 +277,7 @@ def mesh_hit_fn(scene: MeshScene, method: str = "walk", kernel_tile: int = 0,
             traversal.model_hit, tile=kernel_tile,
             binned=binned if binned_anyhit is None else binned_anyhit,
             plain=plain)
+        ray_tile = 0  # the kernel tiles rays itself
     elif method == "dense":
         model_hit = model_hit_any = None
     elif method == "bvh":
@@ -344,8 +365,9 @@ def mesh_hit_fn(scene: MeshScene, method: str = "walk", kernel_tile: int = 0,
         normal = vec.normalize(normal)
 
         p = origins + torch.where(hit, best_t, one)[None, :] * dirs
-        facing = (normal * dirs).sum(0) < 0.0
-        normal = torch.where(facing[None, :], normal, -normal)
+        if flip_normals:
+            facing = (normal * dirs).sum(0) < 0.0
+            normal = torch.where(facing[None, :], normal, -normal)
 
         emitted = torch.where(hit[None, :], rec_t[24:27],
                               torch.zeros_like(rec_t[24:27]))
@@ -353,4 +375,18 @@ def mesh_hit_fn(scene: MeshScene, method: str = "walk", kernel_tile: int = 0,
                    mat=_record_material(rec_t), emitted=emitted,
                    tri=torch.where(hit, idx, torch.full_like(idx, -1)))
 
-    return hit_fn
+    if ray_tile <= 0:
+        return hit_fn
+
+    def hit_tiled(origins, dirs, t_min, t_max, any_hit=False):
+        n = origins.shape[1]
+        if n <= ray_tile:
+            return hit_fn(origins, dirs, t_min, t_max, any_hit=any_hit)
+        t_max = torch.as_tensor(t_max, dtype=torch.float32,
+                                device=origins.device).expand(n)
+        return _cat_hits([
+            hit_fn(origins[:, a:a + ray_tile], dirs[:, a:a + ray_tile],
+                   t_min, t_max[a:a + ray_tile], any_hit=any_hit)
+            for a in range(0, n, ray_tile)])
+
+    return hit_tiled

@@ -1,4 +1,4 @@
-"""The wavefront bounce step (counterpart of ``srt_tpu/models/pathtracer.py``).
+"""The wavefront path tracer (counterpart of ``srt_tpu/models/pathtracer.py``).
 
 The image is an ``[N]`` ray wavefront and each bounce is one batched pass:
 
@@ -8,28 +8,38 @@ The image is an ``[N]`` ray wavefront and each bounce is one batched pass:
 with an ``alive`` mask instead of ``break`` (reference ``GetRayColor``,
 raytrace_compute.glsl:208-294).  Geometry sits behind a
 ``closest_hit(origins, dirs, t_min, t_max, any_hit=False) -> Hit``
-callable.  Vectors are ``[3, N]``.
+callable: spheres (``spheres_hit_fn``), meshes (``models/mesh.py``) or
+the nearest of several (``union_hit_fn``).  Vectors are ``[3, N]``.
+
+Two drivers share ``bounce_step``, so they cannot drift apart: the scan
+integrator here (``trace_wavefront`` under ``render``: every bounce at
+the full width N, the JAX package's ``lax.scan`` as a Python loop) and the
+width-compacted driver of ``models/wavefront_compact.py``.
 
 Sort keys are built in int64 (torch has only partial uint32 support); they
 order exactly like the JAX package's uint32 keys, and ``torch.argsort``
 runs stable like ``jnp.argsort``.
 
 Not ported yet: next-event estimation toward emissive triangles, ray
-cones, the ``shadow_fn`` hook and the ``lax.scan`` integrator.
+cones and the ``shadow_fn`` hook.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Optional
 
 import torch
 
-from srt_tpu_torch.config import RenderConfig
-from srt_tpu_torch.ops import brdf, vec
+from srt_tpu_torch.camera import derive_viewport, generate_rays
+from srt_tpu_torch.config import CameraConfig, RenderConfig
+from srt_tpu_torch.ops import brdf, intersect, rng, vec
 from srt_tpu_torch.ops.gather import take_small_t
+from srt_tpu_torch.ops.morton import (PermutedStream, morton_perm,
+                                      permute_rays, unpermute_image)
 from srt_tpu_torch.ops.vec import bc
-from srt_tpu_torch.scene import Lights, Materials
+from srt_tpu_torch.scene import Lights, Materials, Spheres
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +55,106 @@ class Hit:
     mat: Materials
     emitted: Optional[torch.Tensor] = None
     tri: Optional[torch.Tensor] = None
+
+
+def _materials_t(mats: Materials, idx) -> Materials:
+    """Table materials -> per-ray component-first materials."""
+    return Materials(
+        albedo=take_small_t(mats.albedo, idx),
+        specular=take_small_t(mats.specular, idx),
+        roughness=take_small_t(mats.roughness[:, None], idx)[0],
+        metalness=take_small_t(mats.metalness[:, None], idx)[0],
+        use_spec=take_small_t(mats.use_spec[:, None], idx)[0],
+    )
+
+
+def spheres_hit_fn(spheres: Spheres):
+    """Closest-hit closure over a sphere scene (``CheckHit`` sphere loop,
+    raytrace_compute.glsl:122-141)."""
+
+    def closest_hit(origins, dirs, t_min, t_max, any_hit=False):
+        hit, t, idx = intersect.sphere_hit(
+            origins, dirs, spheres.center, spheres.radius, t_min, t_max)
+        p = origins + bc(torch.where(hit, t, torch.ones_like(t))) * dirs
+        if any_hit:
+            # Occlusion only: no shading data.
+            return Hit(hit=hit, t=t, p=p, normal=torch.zeros_like(p),
+                       mat=_materials_t(spheres.materials,
+                                        torch.zeros_like(idx)))
+        center = take_small_t(spheres.center, idx)
+        radius = take_small_t(spheres.radius[:, None], idx)[0]
+        normal, _front = intersect.sphere_normal(p, center, radius, dirs)
+        return Hit(hit=hit, t=t, p=p, normal=normal,
+                   mat=_materials_t(spheres.materials, idx))
+
+    return closest_hit
+
+
+def _supports_kw(fn, name: str) -> bool:
+    """True when ``fn`` accepts the keyword ``name`` (read from its
+    signature, not by calling it and catching TypeError)."""
+    try:
+        sig = inspect.signature(fn)
+    except (TypeError, ValueError):
+        return False
+    return name in sig.parameters or any(
+        p.kind is inspect.Parameter.VAR_KEYWORD
+        for p in sig.parameters.values())
+
+
+def union_hit_fn(*hit_fns):
+    """Combine closest-hit functions into one scene: the nearest hit wins
+    (the reference switches spheres and models with ``showModel``,
+    raytrace_compute.glsl:132-143; this takes both).  A hit fn without an
+    ``any_hit`` parameter is called without it.  Where one record carries
+    ``emitted`` or ``tri`` and the other does not, the missing one counts
+    as zeros and -1."""
+    takes_any_hit = tuple(_supports_kw(fn, "any_hit") for fn in hit_fns)
+
+    def closest_hit(origins, dirs, t_min, t_max, any_hit=False):
+        best = None
+        for fn, supported in zip(hit_fns, takes_any_hit):
+            kw = {"any_hit": any_hit} if supported else {}
+            rec = fn(origins, dirs, t_min, t_max, **kw)
+            if best is None:
+                best = rec
+                continue
+            closer = rec.hit & (~best.hit | (rec.t < best.t))
+
+            def sel(a, b, m=closer):
+                # Vectors are [3, N] (the mask broadcasts); scalars [N].
+                return torch.where(m[None, :] if a.ndim > m.ndim else m, a, b)
+
+            if rec.emitted is None and best.emitted is None:
+                emitted = None
+            else:
+                e_new = rec.emitted if rec.emitted is not None \
+                    else torch.zeros_like(best.emitted)
+                e_old = best.emitted if best.emitted is not None \
+                    else torch.zeros_like(rec.emitted)
+                emitted = sel(e_new, e_old)
+            if rec.tri is None and best.tri is None:
+                tri = None
+            else:
+                miss = torch.full(best.hit.shape, -1, dtype=torch.int32,
+                                  device=best.hit.device)
+                tri = sel(rec.tri if rec.tri is not None else miss,
+                          best.tri if best.tri is not None else miss)
+            best = Hit(
+                hit=best.hit | rec.hit,
+                t=torch.where(closer, rec.t, best.t),
+                p=sel(rec.p, best.p),
+                normal=sel(rec.normal, best.normal),
+                mat=Materials(**{
+                    f.name: sel(getattr(rec.mat, f.name),
+                                getattr(best.mat, f.name))
+                    for f in dataclasses.fields(Materials)}),
+                emitted=emitted,
+                tri=tri,
+            )
+        return best
+
+    return closest_hit
 
 
 def _part1by2(x):  # spread 5 bits with 2-bit gaps
@@ -148,8 +258,8 @@ def _masked(mask, x):
 
 def bounce_step(closest_hit, lights: Lights, cfg: RenderConfig, carry,
                 bounce: int, u, sort: bool, emitters=None):
-    """One path-tracing bounce on a wavefront slice (the body of the
-    compact driver).
+    """One path-tracing bounce on a wavefront slice: the body of the scan
+    integrator (``trace_wavefront``) and of the compact driver.
 
     ``carry`` = (origins, dirs, throughput, color, alive, pix) in
     wavefront order; ``u`` [D, W] is this bounce's uniform block already
@@ -259,3 +369,116 @@ def bounce_step(closest_hit, lights: Lights, cfg: RenderConfig, carry,
         throughput, color = throughput[:, order], color[:, order]
         cont, pix = cont[order], pix[order]
     return (origins, dirs, throughput, color, cont, pix), stats
+
+
+def trace_wavefront(closest_hit, lights: Lights, origins, dirs, stream,
+                    cfg: RenderConfig, return_stats: bool = False):
+    """Trace a ``[3, N]`` ray batch to radiance ``[3, N]``: the JAX
+    package's ``lax.scan`` over ``max_depth + rr_bounces`` bounces as a
+    loop, every bounce at the full width N (dead rays trace with
+    t_max = 0), then paths still alive end as a miss.
+
+    ``stream`` (``KeyStream``, ``ArrayStream`` or ``PermutedStream``)
+    gives every bounce's slots in one ``take(n_bounces * slots)``,
+    reshaped to [B, D, N]; with ``cfg.sort_bounces`` each bounce's block
+    is gathered by the rays' pixel ids, and the radiance is scattered back
+    to pixel order at the end.  With ``return_stats`` also returns the
+    per-bounce (rays traced, shadow queries) [B, 2] int32."""
+    n = origins.shape[1]
+    dev = origins.device
+    n_bounces = cfg.max_depth + cfg.rr_bounces
+    d_slots = rng.bounce_slots(lights.count)
+    u_bounce = stream.take(n_bounces * d_slots).reshape(n_bounces, d_slots, n)
+    # The JAX scan traces the bounce index, so its sorted shadow batches
+    # (``isinstance(bounce, int)``) never run there; the loop here passes
+    # ints, so the sort is switched off to trace the same batches.
+    cfg = dataclasses.replace(cfg, sort_shadows_from=None)
+    carry = (origins, dirs, torch.ones((3, n), device=dev),
+             torch.zeros((3, n), device=dev),
+             torch.ones((n,), dtype=torch.bool, device=dev),
+             torch.arange(n, device=dev))
+    stats = []
+    for b in range(n_bounces):
+        u = u_bounce[b]
+        if cfg.sort_bounces:
+            u = u[:, carry[5]]
+        carry, st = bounce_step(closest_hit, lights, cfg, carry, b, u,
+                                sort=cfg.sort_bounces)
+        stats.append(st)
+    _, dirs, throughput, color, alive, pix = carry
+    color = color + _masked(bc(alive), throughput * _sky(dirs, cfg))
+    if cfg.sort_bounces:
+        out = torch.zeros_like(color)
+        out[:, pix] = color
+        color = out
+    if return_stats:
+        return color, (torch.stack(stats) if stats else
+                       torch.zeros((0, 2), dtype=torch.int32, device=dev))
+    return color
+
+
+def trace_image_sample(closest_hit, lights: Lights, cam: CameraConfig,
+                       cfg: RenderConfig, stream, origin=None, look_at=None,
+                       return_stats: bool = False):
+    """One full-image sample: jittered primary rays (2 slots, then 2
+    defocus slots when ``cam.defocus_angle > 0``) and ``trace_wavefront``,
+    in Morton order when ``cfg.morton_order``.  Returns linear radiance
+    [H, W, 3] (and the [B, 2] stats with ``return_stats``) on the
+    stream's device."""
+    if cfg.ray_cones:
+        raise NotImplementedError("ray cones are not ported yet: "
+                                  "ROADMAP.md queue A")
+    jitter = stream.take(2)
+    defocus = stream.take(2) if cam.defocus_angle > 0 else None
+    vp = derive_viewport(cam, origin=origin, look_at=look_at,
+                         device=jitter.device)
+    origins, dirs = generate_rays(vp, cam.width, cam.height, jitter, defocus)
+    if cfg.morton_order:
+        perm, inv = morton_perm(cam.height, cam.width)
+        origins, dirs = permute_rays(origins, dirs, perm)
+        out = trace_wavefront(closest_hit, lights, origins, dirs,
+                              PermutedStream(stream, perm), cfg,
+                              return_stats=True)
+        radiance = unpermute_image(out[0], inv)
+    else:
+        out = trace_wavefront(closest_hit, lights, origins, dirs, stream,
+                              cfg, return_stats=True)
+        radiance = out[0]
+    img = radiance.T.reshape(cam.height, cam.width, 3)
+    return (img, out[1]) if return_stats else img
+
+
+def render(closest_hit, lights: Lights, cam: CameraConfig,
+           cfg: RenderConfig, key: torch.Tensor, origin=None,
+           look_at=None) -> torch.Tensor:
+    """Render ``cfg.spp`` samples; the linear mean image [H, W, 3].
+    Sample s draws from ``KeyStream(fold_in(key, s), H * W)`` (``key``
+    from ``ops/rng.key``: the numbers of the JAX package's
+    ``render(jax.random.key(seed))``)."""
+    n = cam.height * cam.width
+
+    def one_sample(s):
+        return trace_image_sample(
+            closest_hit, lights, cam, cfg,
+            rng.KeyStream(rng.fold_in(key, s), n), origin=origin,
+            look_at=look_at)
+
+    if cfg.spp == 1:
+        return one_sample(0)
+    return torch.stack([one_sample(s) for s in range(cfg.spp)]).mean(0)
+
+
+def render_spheres(spheres: Spheres, lights: Lights, cam: CameraConfig,
+                   cfg: RenderConfig, key: torch.Tensor) -> torch.Tensor:
+    """Render a sphere scene (the reference's SHOW_MODEL=0 configuration)."""
+    return render(spheres_hit_fn(spheres), lights, cam, cfg, key)
+
+
+def trace_with_uniforms(closest_hit, lights: Lights, cam: CameraConfig,
+                        cfg: RenderConfig, uniforms: torch.Tensor):
+    """One image sample driven by an injected ``[N, D]`` float32 uniform
+    tensor (``ArrayStream``): the same slots as the JAX package's
+    ``trace_with_uniforms`` and the numpy oracle; runs on the tensor's
+    device."""
+    return trace_image_sample(closest_hit, lights, cam, cfg,
+                              rng.ArrayStream(uniforms))

@@ -1,6 +1,7 @@
-"""Triangle intersection constants and the dense Moller-Trumbore sweep
-(counterpart of ``srt_tpu/ops/intersect.py``; reference
-``IntersectsTriangle``, ray_intersects.glsl:61-96)."""
+"""Primitive intersection over ray wavefronts (counterpart of
+``srt_tpu/ops/intersect.py``): spheres (reference ``SphereHit``,
+raytrace_compute.glsl:93-120) and the dense Moller-Trumbore sweep
+(``IntersectsTriangle``, ray_intersects.glsl:61-96)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,51 @@ from srt_tpu_torch.ops.vec import cross, dot
 
 MT_PARALLEL_EPS = 1e-4   # ray-parallel epsilon (ray_intersects.glsl:73)
 MT_HIT_EPS = 1e-5        # minimum hit distance  (ray_intersects.glsl:89)
+
+
+def sphere_hit(origins, dirs, centers, radii, t_min, t_max):
+    """Closest sphere hit per ray: the quadric's near root if inside
+    (t_min, t_max), else its far root, then the nearest sphere (the
+    closest-hit loop of ``CheckHit``, raytrace_compute.glsl:122-141).
+
+    origins/dirs [3, N]; centers [S, 3]; radii [S]; ``t_max`` a float or
+    [N].  Returns (hit [N] bool, t [N], idx [N] int32)."""
+    ct = centers.T                                           # [3, S]
+    oc = ct[:, :, None] - origins[:, None, :]                # [3, S, N]
+    a = (dirs * dirs).sum(0)[None, :]                        # [1, N]
+    h = (dirs[:, None, :] * oc).sum(0)                       # [S, N]
+    c = (oc * oc).sum(0) - (radii * radii)[:, None]          # [S, N]
+    t_max = torch.as_tensor(t_max, dtype=torch.float32,
+                            device=origins.device)
+    t_max = (t_max[None, :] if t_max.ndim else t_max).expand(h.shape)
+    disc = h * h - a * c
+    valid = disc >= 0.0
+    # Double where: the masked-out sqrt sees a positive argument, so a
+    # gradient through it stays finite (the derivative of sqrt at 0 is
+    # inf, and 0 * inf = NaN).  The root is taken in float64 and rounded:
+    # the correctly rounded float32 root on every device (torch's CPU
+    # float32 sqrt is an ulp off on ~0.7% of inputs, and the far root of
+    # a ray inside the ground sphere cancels h against it).
+    sqrtd = torch.sqrt(torch.where(valid, disc, torch.ones_like(disc))
+                       .double()).float()
+    root_near = (h - sqrtd) / a
+    root_far = (h + sqrtd) / a
+    near_ok = (t_min < root_near) & (root_near < t_max)
+    far_ok = (t_min < root_far) & (root_far < t_max)
+    root = torch.where(near_ok, root_near, root_far)
+    valid = valid & (near_ok | far_ok)
+    t_all = torch.where(valid, root, torch.full_like(root, float("inf")))
+    t, idx = t_all.min(0)
+    return torch.isfinite(t), t, idx.to(torch.int32)
+
+
+def sphere_normal(p, center, radius, dirs):
+    """Outward normal flipped to face the ray (``SetFaceNormal``,
+    raytrace_utils.glsl:23-26).  p/center/dirs [3, N]; radius [N].
+    Returns (normal [3, N], front_face [N])."""
+    outward = (p - center) / radius[None, :]
+    front = (dirs * outward).sum(0) < 0.0
+    return torch.where(front[None, :], outward, -outward), front
 
 
 def mt_refine(origins, dirs, v0, e1, e2):

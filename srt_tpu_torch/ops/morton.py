@@ -1,9 +1,10 @@
 """Morton (Z-order) ray permutation (counterpart of ``srt_tpu/ops/morton.py``).
 
 Primary rays are traced in Z-order so a kernel tile covers a compact pixel
-block instead of an image row.  The permutation is a host numpy table; the
-uniforms stay in pixel order and each ray carries its pixel id, so the
-image is bit-identical either way.
+block instead of an image row.  The permutation is a host numpy table.  The
+compact driver keeps the uniforms in pixel order and each ray carries its
+pixel id; the scan integrator permutes every uniform block the same way
+(``PermutedStream``).  Either way the image is bit-identical.
 """
 
 from __future__ import annotations
@@ -49,3 +50,31 @@ def permute_rays(origins, dirs, perm):
     """Apply a ray permutation to [3, N] origin/direction pairs."""
     idx = torch.as_tensor(perm, device=origins.device).long()
     return origins[:, idx], dirs[:, idx]
+
+
+class PermutedStream:
+    """Wraps a stream so its ``take`` blocks come out in ray (permuted)
+    order while the base stream stays in pixel order: pixel p consumes the
+    same numbers either way.  Only ``take`` is forwarded, so no other draw
+    can bypass the permutation."""
+
+    def __init__(self, base, perm):
+        self._base = base
+        self._perm = perm
+        self._idx = None
+
+    def take(self, k: int):
+        u = self._base.take(k)
+        if self._idx is None:
+            self._idx = torch.as_tensor(self._perm, device=u.device).long()
+        return u[:, self._idx]
+
+    def __getattr__(self, name):
+        raise AttributeError(
+            f"PermutedStream forwards only take(); draw method {name!r} "
+            "would bypass the ray permutation")
+
+
+def unpermute_image(radiance, inv):
+    """Inverse-permute [3, N] radiance back to pixel order."""
+    return radiance[:, torch.as_tensor(inv, device=radiance.device).long()]

@@ -1,9 +1,10 @@
 """Procedural meshes (numpy): counterpart of ``srt_tpu/utils/procgen.py``.
 
 ``uv_sphere(160, 320, radius=2.0)`` is the 101,760-triangle headline
-scene; ``cube`` and small spheres are test fixtures.  Same vertex order,
-corner duplication and materials as the JAX package, so both packages
-flatten to identical tables.
+scene; ``rubik_grid`` stands in for the Rubik OBJ fixture (config3);
+``cube`` and small spheres are test fixtures; ``write_obj`` writes a mesh
+as OBJ + MTL.  Same vertex order, corner duplication, materials and file
+text as the JAX package, so both packages flatten to identical tables.
 """
 
 from __future__ import annotations
@@ -59,6 +60,35 @@ def cube(size: float = 1.0, center=(0.0, 0.0, 0.0),
     return _mesh_from_quads(verts, quads, [0] * 6, [mat], "cube")
 
 
+def rubik_grid(spacing: float = 1.05, size: float = 1.0) -> MeshData:
+    """3x3x3 grid of cubes (324 triangles), one material per axis layer:
+    a stand-in workload shaped like the Rubik fixture."""
+    positions, uvs, tri_vidx, tri_mat = [], [], [], []
+    mats = [
+        MaterialDef(diffuse=(0.9, 0.1, 0.1), specular=(0.6, 0.6, 0.6), specular_ex=64.0),
+        MaterialDef(diffuse=(0.1, 0.9, 0.1), specular=(0.6, 0.6, 0.6), specular_ex=64.0),
+        MaterialDef(diffuse=(0.1, 0.1, 0.9), specular=(0.6, 0.6, 0.6), specular_ex=64.0),
+    ]
+    for gx in range(3):
+        for gy in range(3):
+            for gz in range(3):
+                sub = cube(size, ((gx - 1) * spacing, (gy - 1) * spacing,
+                                  (gz - 1) * spacing))
+                base = len(positions)
+                positions.extend(sub.positions)
+                uvs.extend(sub.uvs)
+                tri_vidx.extend((sub.tri_vidx + base).tolist())
+                tri_mat.extend([gx % 3] * sub.num_triangles)
+    return MeshData(
+        positions=np.asarray(positions, np.float32),
+        uvs=np.asarray(uvs, np.float32),
+        tri_vidx=np.asarray(tri_vidx, np.uint32),
+        tri_mat=np.asarray(tri_mat, np.uint32),
+        materials=mats,
+        name="rubik_grid",
+    )
+
+
 def uv_sphere(rows: int, cols: int, radius: float = 1.0,
               center=(0.0, 0.0, 0.0), material: MaterialDef = None) -> MeshData:
     """UV sphere with ~2*rows*cols triangles and spherical UVs."""
@@ -102,3 +132,32 @@ def uv_sphere(rows: int, cols: int, radius: float = 1.0,
         materials=[mat],
         name=f"uv_sphere_{rows}x{cols}",
     )
+
+
+def write_obj(path: str, mesh: MeshData, mtl_name: str = None) -> None:
+    """Write MeshData as OBJ, with its MTL beside it."""
+    import os
+
+    mtl_name = mtl_name or mesh.name + ".mtl"
+    mat_names = [f"mat{i}" for i in range(len(mesh.materials))]
+    with open(os.path.join(os.path.dirname(path), mtl_name), "w") as f:
+        for name, m in zip(mat_names, mesh.materials):
+            f.write(f"newmtl {name}\n")
+            f.write("Kd %g %g %g\n" % tuple(m.diffuse))
+            f.write("Ks %g %g %g\n" % tuple(m.specular))
+            f.write("Ns %g\n" % m.specular_ex)
+            if m.use_texture and m.texture_path:
+                f.write("map_Kd %s\n" % os.path.basename(m.texture_path))
+    with open(path, "w") as f:
+        f.write(f"mtllib {mtl_name}\n")
+        for p in mesh.positions:
+            f.write("v %g %g %g\n" % tuple(p))
+        for t in mesh.uvs:
+            f.write("vt %g %g\n" % tuple(t))
+        current = -1
+        for (a, b, c), m in zip(mesh.tri_vidx, mesh.tri_mat):
+            if m != current:
+                f.write(f"usemtl {mat_names[m]}\n")
+                current = m
+            f.write("f %d/%d %d/%d %d/%d\n" % (a + 1, a + 1, b + 1, b + 1,
+                                               c + 1, c + 1))

@@ -19,7 +19,7 @@ from srt_tpu.utils import procgen as jax_procgen
 from srt_tpu.utils import obj_loader as jax_obj
 from srt_tpu.utils.flatten import flatten_models as jax_flatten
 from srt_tpu_torch.camera import derive_viewport, generate_rays
-from srt_tpu_torch.config import CameraConfig
+from srt_tpu_torch.config import CameraConfig, RenderConfig
 from srt_tpu_torch.models import mesh
 from srt_tpu_torch.ops import morton, traversal
 from srt_tpu_torch.scene import lights_from_arrays, model_scene_lights
@@ -124,13 +124,21 @@ def test_entry_points_default_to_the_card():
     import inspect
 
     from srt_tpu_torch import devices
+    from srt_tpu_torch import scene as scene_mod
     from srt_tpu_torch.ops import rng
     calls = {
         mesh.upload: lambda: mesh.upload(
             flatten_models([procgen.uv_sphere(4, 6)], pad_to=128)),
         model_scene_lights: model_scene_lights,
-        derive_viewport: lambda: derive_viewport(CameraConfig()),
+        derive_viewport: lambda: derive_viewport(
+            CameraConfig(), origin=(0.0, 1.0, 2.0), look_at=(0.0, 0.0, 0.0)),
         rng.key: lambda: rng.key(0),
+        scene_mod.default_sphere_scene: scene_mod.default_sphere_scene,
+        scene_mod.sphere_scene_lights: scene_mod.sphere_scene_lights,
+        scene_mod.random_sphere_scene: lambda: scene_mod.random_sphere_scene(
+            3),
+        scene_mod.make_materials: lambda: scene_mod.make_materials(
+            [((1.0, 0.0, 0.0), (0.5, 0.5, 0.5), 0.2, 0.1, True)]),
     }
     for fn, call in calls.items():
         assert inspect.signature(fn).parameters["device"].default is None
@@ -139,6 +147,18 @@ def test_entry_points_default_to_the_card():
                 call()
     assert devices.resolve("cpu") == torch.device("cpu")
     assert rng.key(0, "cpu").device.type == "cpu"
+    # The renders take no device: they run where their key or uniforms
+    # and their scene lie.
+    from srt_tpu_torch.models import pathtracer
+    for fn in (pathtracer.render, pathtracer.render_spheres,
+               pathtracer.trace_with_uniforms, pathtracer.trace_image_sample,
+               pathtracer.trace_wavefront):
+        assert "device" not in inspect.signature(fn).parameters
+    img = pathtracer.render_spheres(
+        scene_mod.default_sphere_scene("cpu"),
+        scene_mod.sphere_scene_lights("cpu"), CameraConfig(width=4, height=4),
+        RenderConfig(max_depth=1, rr_bounces=0), rng.key(0, "cpu"))
+    assert img.device.type == "cpu" and img.shape == (4, 4, 3)
 
 
 @pytest.mark.parametrize("hw", [(8, 8), (24, 40), (33, 17)])
