@@ -85,9 +85,33 @@ Phases, one line each; the last line is printed only when all pass:
    ``union_hit_fn``, every launch replayed as in (c): finite, unlike
    either part alone, B1, B2 and threefry launched.  The phase prints its
    seconds.
+10. Gradients and the trainer (``bench_suite.py``'s backward passes and
+   config10b), ``torch.autograd`` through the scan integrator.  (a)
+   config6: d mean(image) / d (mat_diffuse, positions) of the headline
+   mesh through ``with_positions`` at 256x256, 2 bounces, bounce re-sort:
+   one differentiated frame whose every kernel launch is replayed through
+   its plain version, then forward and forward + backward wall seconds
+   (median of 3 after a warm call), their ratio, peak
+   ``max_memory_allocated``; finite, nonzero gradients; B1, B2 and
+   threefry launched.  (b) config10b: ``run_inverse_rendering`` from
+   (mat_diffuse * 0.9, positions * 1.001) toward the image of the true
+   parameters (key 3), 6 fixed-noise Adam steps at 1e-3: s/step (mean of
+   steps 1-5), finite losses.  (c) config2: d mean / d albedo of the
+   sphere scene at 512x512, spp 16, 4 bounces.  (d) config3: d mean / d
+   mat_diffuse of ``rubik_grid()`` at 512x512, 4 bounces, ``ray_tile``
+   8192.  (e) parity: at ``uv_sphere(12, 18)``, 32x32 the walk's
+   gradients on the card against the port's CPU run and against the
+   dense sweep on the card, on the pixels whose three images agree
+   (``GRAD_TOL``, L2);
+   ``refit_accel`` of the headline mesh on the card against the host
+   build (cluster boxes equal, Woop rows within rtol 2e-4 / atol 2e-5 of
+   the triangle's scale) and a config6 frame on the refit tables against
+   the uploaded ones (the image criterion of 5).  No kernel has a
+   backward: the walks are candidate searches outside the autograd graph.
 
 Each path (the headline frames, the config8 frames, the counter run, the
-binned frames, the pg frames, the scan frames of phase 9) is driven with
+binned frames, the pg frames, the scan frames of phase 9, the backward
+passes and the optimizer steps of phase 10) is driven with
 the launch counts set to 0 just before it and read just after; every
 kernel must be launched by its path.  Each replayed B4/B4s launch also prints its groups, the clusters
 its lists name and the split P its wrapper chose; each B7 launch its
@@ -111,13 +135,15 @@ one call.
 
 ``--profile PATH`` also writes ``torch.profiler`` tables of one more
 frame of each render (headline, config8, binned, pg, and phase 9's
-config2, config6 and config3) to PATH (the source of PERF.md section 5).
+config2, config6 and config3) and of phase 10's config6 forward +
+backward, config2's and config3's to PATH (the source of PERF.md section 5).
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import inspect
 import json
 import os
@@ -178,6 +204,16 @@ CASE_RAYS, THREEFRY_COLS = 65536, 1 << 20
 CONFIG1_SIZE, CONFIG2_SIZE, CONFIG2_SPP = 256, 512, 16
 CONFIG6_SIZE, CONFIG3_SIZE, UNION_SIZE = 256, 512, 256
 CONFIG3_RAY_TILE, SCAN_FRAMES = 8192, 3
+# Phase 10 (gradients, bench_suite.py's config6/config2/config3 backward
+# passes and config10b): timed repetitions after a warm call, config10b's
+# optimizer steps, the small config6 of the parity checks (uv_sphere rows,
+# cols; image size) and their tolerance: |card - other| / |other| (L2
+# norms) of the gradients on the pixels whose images agree, against the
+# port's CPU run and the dense sweep on the card (the same paths; only
+# rounding and scatter-add order differ).
+GRAD_REPS, CONFIG10B_STEPS = 3, 6
+GRAD_SMALL_SPHERE, GRAD_SMALL_SIZE = (12, 18), 32
+GRAD_TOL = 1e-3
 # Rays of the few-group B4/B4s cases (8 groups at G = 32), and the list
 # entries B4 stages in shared memory (LIST_SH, csrc/pgwalk2.cu).
 FEW_RAYS, LIST_STAGED = 256, 256
@@ -1643,6 +1679,321 @@ def phase_scan(scene, cases, profile, dev):
           flush=True)
 
 
+def host_median(fn, reps=GRAD_REPS):
+    """Median wall seconds of ``fn()`` (each call synchronized) over
+    ``reps`` calls after one warm call; returns (s, last result)."""
+    import torch
+    out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[reps // 2], out
+
+
+def grad_of(loss, params, key):
+    """Gradients of the scalar ``loss(leaves, key)`` with respect to
+    fresh leaf copies of ``params``."""
+    leaves = [p.detach().clone().requires_grad_(True) for p in params]
+    loss(leaves, key).backward()
+    return [x.grad for x in leaves]
+
+
+def mesh_loss(scene, lights, cam, cfg, method="walk", ray_tile=0):
+    """config6's loss (``bench_suite.py``): the image mean of
+    ``render(mesh_hit_fn(with_positions(scene with mat_diffuse),
+    positions))``, as ``image`` (params, key) -> [H, W, 3] and ``loss``."""
+    from srt_tpu_torch.models import mesh, pathtracer
+
+    def image(params, key):
+        diffuse, positions = params
+        s = mesh.with_positions(
+            dataclasses.replace(scene, mat_diffuse=diffuse), positions)
+        return pathtracer.render(
+            mesh.mesh_hit_fn(s, method=method, ray_tile=ray_tile), lights,
+            cam, cfg, key)
+
+    return image, lambda params, key: image(params, key).mean()
+
+
+def rel_err(a, b):
+    """The largest |x - y| / |y| (L2 norms) over pairs of tensors (x in a,
+    y in b), on the host."""
+    return max(float((x.cpu() - y.cpu()).norm())
+               / max(float(y.norm()), 1e-30) for x, y in zip(a, b))
+
+
+def check_grads(label, grads):
+    """Finite and nonzero gradients; returns their largest |entry|s."""
+    import torch
+    for g in grads:
+        check(bool(torch.isfinite(g).all()), f"{label}: non-finite gradient")
+    peak = [float(g.abs().max()) for g in grads]
+    check(min(peak) > 0.0, f"{label}: a zero gradient ({peak})")
+    return peak
+
+
+def path_launches(label, path, launches):
+    """Check every kernel of ``path`` in the counts ``launches``; returns
+    the nonzero counts."""
+    found = {k: v for k, v in launches.items() if v}
+    for name in path:
+        check(found.get(name, 0) > 0, f"kernel {name} never launched by the "
+                                      f"{label} path")
+    return found
+
+
+def refit_scale(scene):
+    """Per triangle, the largest term its Woop rows sum (|A^-1| |v0|, and
+    |A^-1|), in float64 on the host: the scale of the float32 rounding
+    that a refit's inverse and translation carry."""
+    import numpy as np
+    v0, v1, v2 = (getattr(scene, f).cpu().numpy().astype(np.float64)
+                  for f in ("tri_v0", "tri_v1", "tri_v2"))
+    e1, e2 = v1 - v0, v2 - v0
+    a = np.stack([e1, e2, np.cross(e1, e2)], -1)
+    ok = np.abs(np.linalg.det(a)) > 1e-12
+    inv = np.abs(np.linalg.inv(np.where(ok[:, None, None], a, np.eye(3))))
+    return np.maximum((inv @ np.abs(v0)[:, :, None])[:, :, 0].max(1),
+                      inv.max((1, 2)))
+
+
+def phase_grad(scene, cases, profile, dev):
+    """Phase 10: gradients and the trainer (``bench_suite.py``'s config6
+    backward, config10b's optimizer steps, config2's and config3's
+    backward passes) and their parity on the card."""
+    import numpy as np
+    import torch
+
+    from srt_tpu_torch import optim
+    from srt_tpu_torch.config import CameraConfig, RenderConfig
+    from srt_tpu_torch.models import mesh, pathtracer
+    from srt_tpu_torch.ops import rng
+    from srt_tpu_torch.ops import traversal as tr
+    from srt_tpu_torch.scene import (default_sphere_scene,
+                                     model_scene_lights, sphere_scene_lights)
+    from srt_tpu_torch.utils.flatten import flatten_models
+    from srt_tpu_torch.utils.procgen import rubik_grid
+
+    t_phase = time.perf_counter()
+    card = cases.card
+    gib = 2.0 ** 30
+    lights = model_scene_lights(dev)
+    cam6 = CameraConfig(width=CONFIG6_SIZE, height=CONFIG6_SIZE,
+                        **HEADLINE_CAMERA)
+    cfg6 = RenderConfig(max_depth=2, rr_bounces=0, spp=1, sort_bounces=True)
+    image6, loss6 = mesh_loss(scene, lights, cam6, cfg6)
+    params6 = (scene.mat_diffuse, scene.positions)
+    key0 = rng.key(0, dev)
+
+    # (a) config6's backward: (mat_diffuse, positions) of the headline
+    # mesh.  One differentiated frame with every launch replayed through
+    # its plain version, then forward and backward timed.
+    out = []
+    launched = replay_frame(
+        "10a", lambda: out.append(grad_of(loss6, params6, key0)), cases)
+    check(launched == set(SCAN_MESH_PATH),
+          f"the differentiated config6 frame launched {sorted(launched)}")
+    tr.reset_launch_counts()
+    with torch.no_grad():
+        fwd_s, _ = host_median(lambda: loss6(params6, key0))
+    torch.cuda.reset_peak_memory_stats(dev)
+    bwd_s, grads = host_median(lambda: grad_of(loss6, params6, key0))
+    peak = torch.cuda.max_memory_allocated(dev) / gib
+    found = path_launches("config6 backward", SCAN_MESH_PATH,
+                          tr.launch_counts)
+    mags = check_grads("config6", grads)
+    again = rel_err(grad_of(loss6, params6, key0), grads)
+    print(f"[10a] config6 backward ({scene.model_tri_count[0]}-tri uv_sphere,"
+          f" {CONFIG6_SIZE}x{CONFIG6_SIZE}, 2 bounces, d mean / d "
+          f"(mat_diffuse, positions)): forward {fwd_s:.6f} s, forward + "
+          f"backward {bwd_s:.6f} s (median of {GRAD_REPS} after a warm "
+          f"call), bwd/fwd {bwd_s / fwd_s:.2f}x, peak memory {peak:.3f} "
+          f"GiB; gradients finite, max |g| {mags}; a second backward "
+          f"differs by {again:.3e} (L2, relative; scatter-add order); "
+          f"launches {found}  [{card}]", flush=True)
+    if profile:
+        profile_frame(lambda: grad_of(loss6, params6, key0),
+                      "config6 forward + backward", bwd_s, profile)
+
+    # (b) config10b: Adam steps on (mat_diffuse, positions) toward the
+    # image of the true parameters (key 3); step 0 dropped from the mean.
+    with torch.no_grad():
+        target = image6(params6, rng.key(3, dev))
+    params0 = (scene.mat_diffuse * 0.9, scene.positions * 1.001)
+    stamps = [time.perf_counter()]
+    tr.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    res = optim.run_inverse_rendering(
+        image6, params0, target, rng.key(3, dev), steps=CONFIG10B_STEPS,
+        learning_rate=1e-3, fixed_noise=True, log_every=0,
+        callback=lambda i, p, loss: stamps.append(time.perf_counter()))
+    peak = torch.cuda.max_memory_allocated(dev) / gib
+    found = path_launches("config10b", SCAN_MESH_PATH, tr.launch_counts)
+    losses = res.losses
+    check(len(losses) == CONFIG10B_STEPS and np.isfinite(losses).all(),
+          f"config10b: losses {losses}")
+    check(min(losses) <= losses[0], f"config10b: losses {losses}")
+    step_s = float(np.diff(stamps)[1:].mean())
+    print(f"[10b] config10b ({CONFIG10B_STEPS} fixed-noise Adam steps at "
+          f"1e-3 on (mat_diffuse * 0.9, positions * 1.001), "
+          f"{CONFIG6_SIZE}x{CONFIG6_SIZE}): {step_s:.6f} s/step (mean of "
+          f"steps 1-{CONFIG10B_STEPS - 1}), step 0 "
+          f"{stamps[1] - stamps[0]:.6f} s, losses {losses}, last/first "
+          f"{losses[-1] / losses[0]:.6f}, peak memory {peak:.3f} GiB, "
+          f"launches {found}  [{card}]", flush=True)
+
+    # (c) config2's backward: d mean / d albedo, 16 samples, 4 bounces.
+    spheres = default_sphere_scene(dev)
+    s_lights = sphere_scene_lights(dev)
+    cam = CameraConfig(width=CONFIG2_SIZE, height=CONFIG2_SIZE)
+    cfg = RenderConfig(max_depth=4, rr_bounces=0, spp=CONFIG2_SPP)
+
+    def loss2(params, key):
+        s = dataclasses.replace(spheres, materials=dataclasses.replace(
+            spheres.materials, albedo=params[0]))
+        return pathtracer.render_spheres(s, s_lights, cam, cfg, key).mean()
+
+    tr.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    bwd_s, grads = host_median(
+        lambda: grad_of(loss2, (spheres.materials.albedo,), key0))
+    peak = torch.cuda.max_memory_allocated(dev) / gib
+    found = path_launches("config2 backward", SPHERE_PATH, tr.launch_counts)
+    finite = bool(torch.isfinite(grads[0]).all())
+    check(finite, "config2: non-finite gradient")
+    print(f"[10c] config2 backward (spheres {CONFIG2_SIZE}x{CONFIG2_SIZE}, "
+          f"spp {CONFIG2_SPP}, 4 bounces, d mean / d albedo): forward + "
+          f"backward {bwd_s:.6f} s (median of {GRAD_REPS}), peak memory "
+          f"{peak:.3f} GiB, gradient finite {finite}, max |g| "
+          f"{float(grads[0].abs().max())}, launches {found}  [{card}]",
+          flush=True)
+    if profile:
+        profile_frame(lambda: grad_of(loss2, (spheres.materials.albedo,),
+                                      key0),
+                      "config2 forward + backward", bwd_s, profile)
+
+    # (d) config3's backward: d mean / d mat_diffuse of the Rubik grid.
+    rubik = mesh.upload(flatten_models([rubik_grid()], pad_to=128), dev)
+    cam = CameraConfig(width=CONFIG3_SIZE, height=CONFIG3_SIZE,
+                       **CONFIG3_CAMERA)
+    cfg = RenderConfig(max_depth=4, rr_bounces=0)
+
+    def loss3(params, key):
+        s = dataclasses.replace(rubik, mat_diffuse=params[0])
+        return pathtracer.render(
+            mesh.mesh_hit_fn(s, ray_tile=CONFIG3_RAY_TILE), lights, cam, cfg,
+            key).mean()
+
+    tr.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    bwd_s, grads = host_median(lambda: grad_of(loss3, (rubik.mat_diffuse,),
+                                               key0))
+    peak = torch.cuda.max_memory_allocated(dev) / gib
+    found = path_launches("config3 backward", ONE_SUPER_PATH,
+                          tr.launch_counts)
+    finite = bool(torch.isfinite(grads[0]).all())
+    check(finite, "config3: non-finite gradient")
+    print(f"[10d] config3 backward (rubik_grid, {CONFIG3_SIZE}x"
+          f"{CONFIG3_SIZE}, 4 bounces, ray_tile {CONFIG3_RAY_TILE}, d mean / "
+          f"d mat_diffuse): forward + backward {bwd_s:.6f} s (median of "
+          f"{GRAD_REPS}), peak memory {peak:.3f} GiB, gradient finite "
+          f"{finite}, max |g| {float(grads[0].abs().max())}, launches "
+          f"{found}  [{card}]", flush=True)
+    if profile:
+        profile_frame(lambda: grad_of(loss3, (rubik.mat_diffuse,), key0),
+                      "config3 forward + backward", bwd_s, profile)
+
+    # (e) Parity.  At config6's small size: the walk's gradients on the
+    # card against the port's CPU run and against the dense sweep on the
+    # card, on the pixels whose three images agree (an ulp on the card, or
+    # the walk's edge slop, can flip one pixel's path, and vertex
+    # gradients are sparse enough for one pixel to move them by percents).
+    # CUDA's scatter-adds have no fixed order, so no gradient is bit for
+    # bit.
+    cpu = torch.device("cpu")
+    cam = CameraConfig(width=GRAD_SMALL_SIZE, height=GRAD_SMALL_SIZE,
+                       **HEADLINE_CAMERA)
+    runs = {}
+    for label, d, method in (("card walk", dev, "walk"),
+                             ("CPU walk", cpu, "walk"),
+                             ("card dense", dev, "dense")):
+        small, _ = build_scene(d, *GRAD_SMALL_SPHERE)
+        image, _ = mesh_loss(small, model_scene_lights(d), cam, cfg6, method)
+        params = (small.mat_diffuse, small.positions)
+        with torch.no_grad():
+            runs[label] = (image, params, d, image(params, rng.key(0, d))
+                           .cpu())
+    imgs = [r[3] for r in runs.values()]
+    stable = torch.ones(imgs[0].shape[:2], dtype=torch.bool)
+    for x in imgs[1:]:
+        stable &= torch.isclose(x, imgs[0], rtol=1e-4, atol=1e-5).all(-1)
+    share = float(stable.float().mean())
+    check(share >= 0.99, f"small config6: {100 * share:.2f}% of pixels agree")
+    got = {}
+    for label, (image, params, d, _) in runs.items():
+        w = stable.to(d, torch.float32)[:, :, None] / float(stable.sum())
+        got[label] = grad_of(lambda p, k: (image(p, k) * w).sum(), params,
+                             rng.key(0, d))
+        check_grads(f"small config6 {label}", got[label])
+    e_cpu = rel_err(got["card walk"], got["CPU walk"])
+    e_dense = rel_err(got["card walk"], got["card dense"])
+    check(e_cpu <= GRAD_TOL, f"small config6: card vs CPU gradients "
+                             f"differ by {e_cpu:.3e}")
+    check(e_dense <= GRAD_TOL, f"small config6: walk vs dense gradients "
+                               f"differ by {e_dense:.3e}")
+    print(f"[10e] small config6 (uv_sphere{GRAD_SMALL_SPHERE}, "
+          f"{GRAD_SMALL_SIZE}x{GRAD_SMALL_SIZE}) d mean / d (mat_diffuse, "
+          f"positions) over the {int(stable.sum())} of {stable.numel()} "
+          f"pixels whose images agree: |card walk - CPU walk| / |CPU walk| "
+          f"{e_cpu:.3e}, |card walk - card dense| / |card dense| "
+          f"{e_dense:.3e} (tolerance {GRAD_TOL}, L2 norms)  [{card}]",
+          flush=True)
+
+    # refit_accel on the card against the host build of the headline mesh:
+    # the cluster boxes equal, the Woop rows within JAX's test tolerance
+    # (rtol 2e-4, atol 2e-5) relative to the larger of |entry| and the
+    # triangle's summed terms (``refit_scale``; a float32 refit of a thin
+    # triangle cancels large terms, in the JAX package too).  Then a
+    # frame on the refit tables against the frame on the uploaded ones.
+    refit = mesh.refit_accel(scene)
+    torch.cuda.synchronize()
+    check(torch.equal(refit.cluster_min, scene.cluster_min)
+          and torch.equal(refit.cluster_max, scene.cluster_max),
+          "refit: cluster boxes differ from the host build")
+    w = refit.woop.cpu().numpy().transpose(1, 0, 2).reshape(16, -1)
+    h = scene.woop.cpu().numpy().transpose(1, 0, 2).reshape(16, -1)
+    check(np.array_equal(np.isfinite(w), np.isfinite(h)),
+          "refit: non-finite entries differ from the host build")
+    fin = np.isfinite(h)
+    err = np.abs(np.where(fin, w, 0.0) - np.where(fin, h, 0.0))
+    scale = np.maximum(np.abs(np.where(fin, h, 0.0)), refit_scale(scene))
+    beyond = int((err > 2e-5 + 2e-4 * scale).sum())
+    plain_beyond = int((err > 2e-5 + 2e-4 * np.abs(np.where(fin, h, 0.0)))
+                       .sum())
+    check(beyond == 0, f"refit: {beyond} Woop entries beyond the tolerance")
+    with torch.no_grad():
+        a = image6(params6, key0)
+        b = pathtracer.render(mesh.mesh_hit_fn(refit), lights, cam6, cfg6,
+                              key0)
+    share, max_err = image_agreement(b, a)
+    same = float((a == b).all(-1).float().mean())
+    check(share >= 0.995, f"refit frame: {100 * share:.3f}% of pixels within "
+                          f"rtol 1e-4 / atol 1e-5")
+    print(f"[10e] refit_accel of the headline mesh on the card: cluster "
+          f"boxes equal to the host build, Woop rows within rtol 2e-4 / "
+          f"atol 2e-5 of the triangle's scale ({plain_beyond} entries "
+          f"beyond 2e-4 of |entry| alone; max |err| {float(err.max())}); "
+          f"a config6 frame on the refit tables: {100 * same:.4f}% of "
+          f"pixels bit-equal to the uploaded tables', max |err| {max_err}"
+          f"  [{card}]", flush=True)
+    print(f"[10] gradient phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="PATH")
@@ -1711,6 +2062,7 @@ def main(argv=None) -> int:
     del scene8
     phase_binned(scene, cases, args.profile)
     phase_scan(scene, cases, args.profile, dev)
+    phase_grad(scene, cases, args.profile, dev)
 
     # Each kernel's first case, or its LINE_CASES case: device ms, plain ms
     # and bound of one call.  No single PyTorch call computes a cull, a
@@ -1728,7 +2080,7 @@ def main(argv=None) -> int:
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
             library_ms=None))
-    print(f"[10] all phases passed in {time.perf_counter() - t_start:.1f} s",
+    print(f"[11] all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,13 @@ Traversal methods:
 * ``"dense"`` — every ray against every triangle (Moller-Trumbore, in ray
   chunks): the independent traversal baseline.
 
+Gradients flow through the hit record to ``mat_diffuse`` and the other
+material rows, the vertices (``tri_v0/v1/v2``, or a shared ``positions``
+buffer through ``with_positions``), ``frames`` and the rays.  The walk
+is a candidate search outside the autograd graph; the exact refine of
+its winner is where its hits depend on them.  ``refit_accel`` rebuilds
+the walk tables after vertices move.
+
 Textured scenes (an atlas) and the BVH stack strategy are not ported yet.
 """
 
@@ -154,6 +161,70 @@ def scene_from_arrays(d: dict, static: dict, device) -> MeshScene:
             np.asarray(x), device=device)
     return MeshScene(**arrays, **{k: static[k] for k in STATIC_FIELDS
                                   if k in static})
+
+
+def with_positions(scene: MeshScene, positions) -> MeshScene:
+    """Re-gather the per-corner vertex arrays ``tri_v0/v1/v2`` from a
+    shared vertex buffer ``positions`` [V, 3] through ``tri_vidx``: the
+    differentiable-geometry entry point.  The gather's backward
+    scatter-adds each corner's gradient into its shared vertex (padding
+    triangles alias real vertices, so theirs land there too).
+
+    The walk tables (``woop``, cluster boxes) stay those of the uploaded
+    geometry; after an optimizer step moves vertices, ``refit_accel``
+    rebuilds them.  Shading normals are not re-derived."""
+    vidx = scene.tri_vidx.long()
+    return dataclasses.replace(
+        scene, positions=positions, tri_v0=positions[vidx[:, 0]],
+        tri_v1=positions[vidx[:, 1]], tri_v2=positions[vidx[:, 2]])
+
+
+def refit_accel(scene: MeshScene) -> MeshScene:
+    """Rebuild the walk tables (the Woop table [C, 16, 128] and the cluster
+    boxes) from the scene's current ``tri_v0/v1/v2``, in float32 torch on
+    the scene's device (no host round trip: it runs between optimizer
+    steps).  As in the JAX package: a determinant threshold of 1e-12 (the
+    host build's float64 uses 1e-18; near-singular inverses overflow
+    float32, and such slivers never win a closest hit) and row 12 =
+    ``MT_PARALLEL_EPS / |n|^2`` (inf for a singular triangle).  The tables
+    are built from detached vertices (kernel operands carry no history).
+    BVH node bounds are not refit: the result is flagged
+    ``stale_node_bounds``.  A scene without walk tables is returned as
+    it is."""
+    if scene.woop is None:
+        return scene
+    v0, v1, v2 = (x.detach() for x in (scene.tri_v0, scene.tri_v1,
+                                       scene.tri_v2))
+    e1 = v1 - v0
+    e2 = v2 - v0
+    nrm = torch.linalg.cross(e1, e2)
+    a = torch.stack([e1, e2, nrm], dim=-1)                # [T, 3, 3]
+    ok = torch.linalg.det(a).abs() > 1e-12
+    eye = torch.eye(3, dtype=a.dtype, device=a.device)
+    a_inv = torch.linalg.inv(torch.where(ok[:, None, None], a, eye))
+    trans = -torch.einsum("tij,tj->ti", a_inv, v0)
+    rows = [a_inv[:, r // 4, r % 4] if r % 4 < 3 else trans[:, r // 4]
+            for r in range(12)]
+    n2 = (nrm * nrm).sum(1)
+    eps = torch.where(ok, intersect.MT_PARALLEL_EPS
+                      / torch.clamp_min(n2, 1e-30),
+                      torch.full_like(n2, float("inf")))
+    t_count = v0.shape[0]
+    w16 = torch.zeros((16, t_count), dtype=torch.float32, device=v0.device)
+    w16[:13] = torch.stack(rows + [eps])
+    c_total = t_count // traversal.CLUSTER
+    woop = w16.view(16, c_total, traversal.CLUSTER).transpose(0, 1)
+
+    def chunk(x):
+        return x.view(c_total, traversal.CLUSTER, 3)
+
+    cmin = torch.minimum(torch.minimum(chunk(v0).amin(1), chunk(v1).amin(1)),
+                         chunk(v2).amin(1))
+    cmax = torch.maximum(torch.maximum(chunk(v0).amax(1), chunk(v1).amax(1)),
+                         chunk(v2).amax(1))
+    return dataclasses.replace(scene, woop=woop.contiguous(),
+                               cluster_min=cmin, cluster_max=cmax,
+                               stale_node_bounds=True)
 
 
 def transform_rays(frame, origins, dirs):

@@ -38,6 +38,7 @@ from srt_tpu_torch.ops import brdf, intersect, rng, vec
 from srt_tpu_torch.ops.gather import take_small_t
 from srt_tpu_torch.ops.morton import (PermutedStream, morton_perm,
                                       permute_rays, unpermute_image)
+from srt_tpu_torch.ops.safemath import clip
 from srt_tpu_torch.ops.vec import bc
 from srt_tpu_torch.scene import Lights, Materials, Spheres
 
@@ -336,7 +337,7 @@ def bounce_step(closest_hit, lights: Lights, cfg: RenderConfig, carry,
     # --- Russian roulette (glsl:266-274) once past max_depth ---
     u_rr = u[2 * num_lights + 1]
     in_rr = bounce >= cfg.max_depth
-    survival = torch.clamp(brdf.luminance(throughput), 0.1, 1.0)
+    survival = clip(brdf.luminance(throughput), 0.1, 1.0)
     died = active & (u_rr > survival) if in_rr else torch.zeros_like(active)
     if cfg.sky_always:
         color = color + _masked(bc(died), throughput * _sky(dirs, cfg))

@@ -5,7 +5,8 @@ Cook-Torrance GGX with Smith height-correlated masking, Schlick Fresnel,
 cosine-weighted diffuse + GGX half-vector sampling, RIS over point lights
 and the lobe-selection probability (reference shaders/brdf.glsl and
 raytrace_utils.glsl).  Vectors are ``[3, N]``, per-ray scalars ``[N]``;
-each formula keeps the JAX package's operation order.
+each formula keeps the JAX package's operation order, and each bound by a
+constant keeps its gradient at a tie (``ops/safemath.maximum``).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import NamedTuple
 import torch
 
 from srt_tpu_torch.ops import vec
-from srt_tpu_torch.ops.safemath import safe_sqrt
+from srt_tpu_torch.ops.safemath import clip, maximum, minimum, safe_sqrt
 from srt_tpu_torch.ops.vec import bc, dot
 from srt_tpu_torch.scene import Lights, Materials
 
@@ -24,7 +25,7 @@ MIN_DIELECTRIC_F0 = 0.04
 
 
 def saturate(x):
-    return torch.clamp(x, 0.0, 1.0)
+    return clip(x, 0.0, 1.0)
 
 
 def luminance(rgb):
@@ -38,7 +39,7 @@ def specular_f0(base_color, metalness):
 
 
 def shadowed_f90(f0):
-    return torch.clamp_max((1.0 / MIN_DIELECTRIC_F0) * luminance(f0), 1.0)
+    return minimum((1.0 / MIN_DIELECTRIC_F0) * luminance(f0), 1.0)
 
 
 def fresnel_schlick(f0, f90, n_dot_s):
@@ -47,18 +48,18 @@ def fresnel_schlick(f0, f90, n_dot_s):
 
 def ggx_ndf(n_dot_h, alpha_squared):
     b = (alpha_squared - 1.0) * n_dot_h * n_dot_h + 1.0
-    return alpha_squared / torch.clamp_min(PI * b * b, 0.001)
+    return alpha_squared / maximum(PI * b * b, 0.001)
 
 
 def smith_g_alpha(alpha, n_dot_s):
     return n_dot_s / (
-        torch.clamp_min(alpha, 1e-4)
-        * torch.sqrt(1.0 - torch.clamp_max(n_dot_s * n_dot_s, 0.99999))
+        maximum(alpha, 1e-4)
+        * torch.sqrt(1.0 - minimum(n_dot_s * n_dot_s, 0.99999))
     )
 
 
 def smith_g_lambda_ggx(a):
-    return (-1.0 + torch.sqrt(1.0 + 1.0 / torch.clamp_min(a * a, 0.001))) * 0.5
+    return (-1.0 + torch.sqrt(1.0 + 1.0 / maximum(a * a, 0.001))) * 0.5
 
 
 def smith_g2_height_correlated(alpha, n_dot_l, n_dot_v):
@@ -69,19 +70,19 @@ def smith_g2_height_correlated(alpha, n_dot_l, n_dot_v):
 
 def ggx_schlick_masking(n_dot_l, n_dot_v, roughness):
     k = roughness * roughness / 2.0
-    g_v = n_dot_v / torch.clamp_min(n_dot_v * (1.0 - k) + k, 0.001)
-    g_l = n_dot_l / torch.clamp_min(n_dot_l * (1.0 - k) + k, 0.001)
+    g_v = n_dot_v / maximum(n_dot_v * (1.0 - k) + k, 0.001)
+    g_l = n_dot_l / maximum(n_dot_l * (1.0 - k) + k, 0.001)
     return (g_v * g_l).abs()
 
 
 def ggx_ndf_legacy(n_dot_h, roughness):
     a2 = roughness * roughness
     d = (n_dot_h * a2 - n_dot_h) * n_dot_h + 1.0
-    return a2 / torch.clamp_min(d * d * PI, 0.001)
+    return a2 / maximum(d * d * PI, 0.001)
 
 
 def schlick_fresnel_legacy(f0, u):
-    return f0 + (1.0 - f0) * torch.pow(torch.clamp_min(1.0 - bc(u), 0.001), 5.0)
+    return f0 + (1.0 - f0) * torch.pow(maximum(1.0 - bc(u), 0.001), 5.0)
 
 
 def perpendicular_vector(u):
@@ -116,8 +117,8 @@ def sample_ggx_half_vector(normal, roughness, r1, r2):
     b = perpendicular_vector(normal)
     t = vec.cross(b, normal)
     a2 = roughness * roughness
-    cos_th = safe_sqrt(torch.clamp_min((1.0 - r1) / ((a2 - 1.0) * r1 + 1.0), 0.0))
-    sin_th = safe_sqrt(torch.clamp_min(1.0 - cos_th * cos_th, 0.0))
+    cos_th = safe_sqrt(maximum((1.0 - r1) / ((a2 - 1.0) * r1 + 1.0), 0.0))
+    sin_th = safe_sqrt(maximum(1.0 - cos_th * cos_th, 0.0))
     phi = r2 * 2.0 * PI
     return (
         t * bc(sin_th * torch.cos(phi))
@@ -169,11 +170,10 @@ def eval_diffuse(data: BrdfData):
 
 
 def eval_specular(data: BrdfData):
-    d = ggx_ndf(data.n_dot_h, torch.clamp_min(data.alpha_squared, 1e-5))
+    d = ggx_ndf(data.n_dot_h, maximum(data.alpha_squared, 1e-5))
     g = smith_g2_height_correlated(data.alpha, data.n_dot_l, data.n_dot_v)
-    denom = 4.0 * torch.clamp_min(data.n_dot_l, 0.001) \
-        * torch.clamp_min(data.n_dot_v, 0.001)
-    scale = g * d / torch.clamp_min(denom, 0.001) * data.n_dot_l
+    denom = 4.0 * maximum(data.n_dot_l, 0.001) * maximum(data.n_dot_v, 0.001)
+    scale = g * d / maximum(denom, 0.001) * data.n_dot_l
     return data.fresnel * bc(scale)
 
 
@@ -203,7 +203,7 @@ def sample_direct(p, normal, view_dir, mat: Materials, light_pos, light_color,
     f = schlick_fresnel_legacy(mat.specular, l_dot_h)
     falloff = light_falloff(p, light_pos)
     intensity = light_intensity * falloff
-    ggx_term = f * bc(d * g / (4.0 * torch.clamp_min(n_dot_v, 0.001)))
+    ggx_term = f * bc(d * g / (4.0 * maximum(n_dot_v, 0.001)))
     light_term = bc(shadow_mult) * light_color * bc(intensity)
     return light_term * (ggx_term + bc(n_dot_l) * mat.albedo / PI)
 
@@ -222,11 +222,11 @@ def brdf_probability(mat: Materials, view_dir, normal):
     diff_lum = luminance(mat.albedo * bc(1.0 - mat.metalness))
     f0 = bc(spec_f0_lum).expand((3,) + spec_f0_lum.shape)
     fres = saturate(luminance(fresnel_schlick(
-        f0, shadowed_f90(f0), torch.clamp_min(dot(view_dir, normal), 0.0))))
+        f0, shadowed_f90(f0), maximum(dot(view_dir, normal), 0.0))))
     spec = fres
     diff = diff_lum * (1.0 - fres)
-    p = spec / torch.clamp_min(spec + diff, 1e-4)
-    return torch.clamp(p, 0.1, 0.9)
+    p = spec / maximum(spec + diff, 1e-4)
+    return clip(p, 0.1, 0.9)
 
 
 def sample_specular_microfacet(p, normal, view_dir, mat: Materials, f0,
@@ -239,8 +239,8 @@ def sample_specular_microfacet(p, normal, view_dir, mat: Materials, f0,
     h = torch.where(bc(alpha == 0.0), h_perfect, h_sampled)
 
     l_dir = reflect(-view_dir, h)
-    h_dot_l = torch.clamp(dot(h, l_dir), 1e-5, 1.0)
-    n_dot_l = torch.clamp(dot(normal, l_dir), 1e-5, 1.0)
+    h_dot_l = clip(dot(h, l_dir), 1e-5, 1.0)
+    n_dot_l = clip(dot(normal, l_dir), 1e-5, 1.0)
     f = fresnel_schlick(f0, shadowed_f90(f0), h_dot_l)
     weight = f * bc(specular_sample_weight(alpha_squared, n_dot_l))
     return l_dir, weight
@@ -255,7 +255,7 @@ def sample_indirect(p, normal, view_dir, mat: Materials, take_specular,
     diff_dir = sample_diffuse(normal, diff_r1, diff_r2)
     data = brdf_data(normal, diff_dir, view_dir, mat)
     h = sample_ggx_half_vector(normal, mat.roughness, h_r1, h_r2)
-    v_dot_h = torch.clamp(dot(view_dir, h), 1e-5, 1.0)
+    v_dot_h = clip(dot(view_dir, h), 1e-5, 1.0)
     diff_weight = data.diffuse_reflectance * (
         1.0 - fresnel_schlick(data.specular_f0,
                               shadowed_f90(data.specular_f0), v_dot_h))
@@ -313,5 +313,5 @@ def sample_lights_ris(p, lights: Lights, u_idx, u_sel):
         sel_pdf = torch.where(accept, light_pdf, sel_pdf)
         selected = selected | accept
 
-    weight = (total / num_lights) / torch.clamp_min(sel_pdf, 0.001)
+    weight = (total / num_lights) / maximum(sel_pdf, 0.001)
     return selected, sel_idx, weight

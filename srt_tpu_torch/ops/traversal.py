@@ -50,6 +50,15 @@ The kernels only select the winning triangle per ray (fp32 candidate
 search with an ``EDGE_EPS`` slop at shared edges); ``model_hit`` re-derives
 exact (t, u, v) for the winner with one Moller-Trumbore evaluation.
 
+Gradients: the walks are candidate searches with no gradient, as in the
+JAX package, which wraps every kernel operand in ``stop_gradient``
+(traversal_pallas.py:1466-1540).  ``model_tables``, ``stream_table`` and
+``pack_rays`` build every kernel operand from detached tensors, so a walk
+(kernel or plain version) never joins the autograd graph on either
+device, and gradients with respect to vertices, frames and rays flow only
+through the exact refine (``model_hit`` here, ``mesh_hit_fn``'s refine in
+``models/mesh.py``).
+
 Winner rule: the lexicographic minimum of (t, triangle index) over the
 candidates a walk evaluates, so exact-t ties go to the smallest index.
 The TPU's tiled walk instead gives same-lane cross-super ties to the
@@ -961,7 +970,8 @@ def model_tables(scene, b: int):
     Clusters pad to a full super.  The per-cluster boxes (cb, cb8) pad
     with NaN boxes, which fail every slab test for any ray (an inverted
     box would slab-test as a huge one); the super bounds reduce with
-    +/-BIG identities so a partial super keeps its real bounds."""
+    +/-BIG identities so a partial super keeps its real bounds.  All are
+    detached: kernel operands carry no autograd history."""
     lo = scene.model_first_tri[b]
     count = scene.model_padded_tri_count[b]
     if count % CLUSTER:
@@ -969,8 +979,8 @@ def model_tables(scene, b: int):
                          "pad_to=128")
     c_lo = lo // CLUSTER
     n_clusters = count // CLUSTER
-    cmin = scene.cluster_min[c_lo:c_lo + n_clusters]
-    cmax = scene.cluster_max[c_lo:c_lo + n_clusters]
+    cmin = scene.cluster_min[c_lo:c_lo + n_clusters].detach()
+    cmax = scene.cluster_max[c_lo:c_lo + n_clusters].detach()
     s_count = -(-n_clusters // SUPER)
     c_pad = s_count * SUPER - n_clusters
 
@@ -990,7 +1000,7 @@ def model_tables(scene, b: int):
     cb8 = torch.cat([cmin_n.T, cmax_n.T,
                      torch.zeros((2, s_count * SUPER), dtype=torch.float32,
                                  device=cmin.device)]).contiguous()
-    woop = scene.woop[c_lo:c_lo + n_clusters]
+    woop = scene.woop[c_lo:c_lo + n_clusters].detach()
     return woop, cb, sbounds, cb8, s_count, n_clusters
 
 
@@ -1008,7 +1018,7 @@ def stream_table(scene, b: int):
     walk call would be a new cost in every frame."""
     c_lo = scene.model_first_tri[b] // CLUSTER
     n_clusters = scene.model_padded_tri_count[b] // CLUSTER
-    woop = scene.woop[c_lo:c_lo + n_clusters]
+    woop = scene.woop[c_lo:c_lo + n_clusters].detach()
     w_pad = -n_clusters % SUPER
     if not w_pad:
         return woop
@@ -1034,30 +1044,36 @@ def pack_rays(scene, b: int, origins, dirs, t_best, tile: int,
     Root-AABB t-clip: hits lie inside the model's box, so a ray's window
     ends just past the box exit; rays missing the box become dead.  NaN
     from an on-boundary origin with an axis-parallel direction kills the
-    ray, as in the slab tests."""
+    ray, as in the slab tests.
+
+    ``rays8`` is built from detached tensors (the kernels are candidate
+    searches outside the autograd graph); ``o_m`` and ``d_m`` keep their
+    history for the caller's exact refine."""
     from srt_tpu_torch.models.mesh import transform_rays
 
     o_m, d_m = transform_rays(scene.frames[b], origins, dirs)
+    o_k, d_k = o_m.detach(), d_m.detach()
     n = origins.shape[1]
     dev = origins.device
     c_lo = scene.model_first_tri[b] // CLUSTER
     c_hi = c_lo + scene.model_padded_tri_count[b] // CLUSTER
-    root_lo = scene.cluster_min[c_lo:c_hi].amin(0)
-    root_hi = scene.cluster_max[c_lo:c_hi].amax(0)
-    inv_d = 1.0 / d_m
-    tb0 = (root_lo[:, None] - o_m) * inv_d
-    tb1 = (root_hi[:, None] - o_m) * inv_d
+    root_lo = scene.cluster_min[c_lo:c_hi].detach().amin(0)
+    root_hi = scene.cluster_max[c_lo:c_hi].detach().amax(0)
+    inv_d = 1.0 / d_k
+    tb0 = (root_lo[:, None] - o_k) * inv_d
+    tb1 = (root_hi[:, None] - o_k) * inv_d
     bt_near = torch.minimum(tb0, tb1).amax(0)
     bt_far = torch.maximum(tb0, tb1).amin(0)
     t_clip = torch.where((bt_near <= bt_far) & (bt_far >= 0.0),
                          bt_far * (1.0 + 1e-4) + 1e-3,
                          torch.zeros_like(bt_far))
-    t_best = torch.as_tensor(t_best, dtype=torch.float32, device=dev)
+    t_best = torch.as_tensor(t_best, dtype=torch.float32,
+                             device=dev).detach()
     rays8 = torch.zeros((n + (-n) % tile, 8), dtype=torch.float32,
                         device=dev)
-    rays8[:n, 0:3] = o_m.T
+    rays8[:n, 0:3] = o_k.T
     rays8[:, 3:6] = 1.0
-    rays8[:n, 3:6] = d_m.T
+    rays8[:n, 3:6] = d_k.T
     rays8[:n, 6] = torch.minimum(t_best.expand(n), t_clip)
     rays8[:, 7] = t_lo
     return rays8, o_m, d_m

@@ -188,7 +188,8 @@ def test_walk_parsing_and_validation(port_scene):
 
 
 def test_port_imports_no_jax():
-    """Every port module imports without JAX or the JAX package."""
+    """Every port module, the trainer (``optim``) among them, imports
+    without JAX, optax or the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import srt_tpu_torch\n"
@@ -196,10 +197,11 @@ def test_port_imports_no_jax():
         "    srt_tpu_torch.__path__, 'srt_tpu_torch.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "assert len(mods) >= 20, mods\n"
+        "assert len(mods) >= 21, mods\n"
+        "assert 'srt_tpu_torch.optim' in mods, mods\n"
         "bad = [m for m in sys.modules\n"
-        "       if m == 'jax' or m.startswith(('jax.', 'srt_tpu.'))\n"
-        "       or m == 'srt_tpu']\n"
+        "       if m in ('jax', 'optax', 'srt_tpu')\n"
+        "       or m.startswith(('jax.', 'optax.', 'srt_tpu.'))]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
