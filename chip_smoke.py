@@ -108,10 +108,38 @@ Phases, one line each; the last line is printed only when all pass:
    the triangle's scale) and a config6 frame on the refit tables against
    the uploaded ones (the image criterion of 5).  No kernel has a
    backward: the walks are candidate searches outside the autograd graph.
+11. Textures and next-event estimation (``bench_suite.py``'s config9 and
+   config11).  (a) config9: the headline mesh with the procedural
+   512x512 checker x gradient map in a 6-level mip atlas (``pack_atlas``;
+   ``mip_lod_scale`` 512 / (2 pi 2), every material textured), 1024x1024,
+   4 bounces, bounce re-sort, ray cones, through ``trace_wavefront`` as
+   config9's ``make_run`` calls it: one untimed frame whose every kernel
+   launch is replayed through its plain version, then 3 timed frames
+   textured and 3 untextured on the same key; Mrays/s and the
+   textured/untextured time ratio; a finite image, B1, B2 and threefry
+   launched, the atlas tables on the card, and the textured albedo of the
+   primary hits unlike Kd.  (b) the textured headline through
+   ``make_render_plan`` with ray cones, 1024x1024, 4 bounces: one
+   replayed and 3 timed frames (overflow 0, B1-B4 and threefry), and 3
+   frames of the untextured plan for the ratio.  (c) config11: the lamp
+   and receiver cubes (``pad_to=128``: one supercluster), 512x512, 3
+   bounces, ``trace_image_compact`` at the full-width schedule with NEE
+   off and on: one replayed frame per arm, then 16 keys (``fold_in`` of
+   ``rng.key(11)``) each: frame ms of both arms and their ratio, the
+   relative luminance std on the emitter-lit pixels as ``bench_suite.py``
+   computes it; overflow 0, finite images, B2 and threefry launched and
+   B1 not, more shadow queries with NEE; a ``make_render_plan`` with
+   ``nee=True`` renders one frame with overflow 0.  (d) 64x64 textured
+   (``uv_sphere(40, 60)``) and NEE frames on the card against the port's
+   CPU run from the same key: equal stats, the image criterion of 9a.
+   (e) d mean / d atlas (``quad_pack=False``) and d mean / d
+   mat_emissive on the card: finite and nonzero.  The phase prints its
+   seconds.
 
 Each path (the headline frames, the config8 frames, the counter run, the
 binned frames, the pg frames, the scan frames of phase 9, the backward
-passes and the optimizer steps of phase 10) is driven with
+passes and the optimizer steps of phase 10, the config9, textured-plan
+and config11 frames of phase 11) is driven with
 the launch counts set to 0 just before it and read just after; every
 kernel must be launched by its path.  Each replayed B4/B4s launch also prints its groups, the clusters
 its lists name and the split P its wrapper chose; each B7 launch its
@@ -135,8 +163,10 @@ one call.
 
 ``--profile PATH`` also writes ``torch.profiler`` tables of one more
 frame of each render (headline, config8, binned, pg, and phase 9's
-config2, config6 and config3) and of phase 10's config6 forward +
-backward, config2's and config3's to PATH (the source of PERF.md section 5).
+config2, config6 and config3, phase 11's config9, textured and
+untextured plan and config11 NEE frames) and of phase 10's config6
+forward + backward, config2's and config3's to PATH (the source of
+PERF.md section 5).
 """
 
 from __future__ import annotations
@@ -214,6 +244,15 @@ CONFIG3_RAY_TILE, SCAN_FRAMES = 8192, 3
 GRAD_REPS, CONFIG10B_STEPS = 3, 6
 GRAD_SMALL_SPHERE, GRAD_SMALL_SIZE = (12, 18), 32
 GRAD_TOL = 1e-3
+# Phase 11 (textures and NEE, bench_suite.py's config9 and config11):
+# config9's image size, map size, mip levels and timed frames a variant;
+# the textured plan's size; config11's image size and keys an arm; the
+# card-vs-CPU parity frames (uv_sphere rows, cols; image size).
+CONFIG9_SIZE, CONFIG9_MAP, CONFIG9_MIPS, CONFIG9_FRAMES = 1024, 512, 6, 3
+TEX_PLAN_SIZE = 1024
+CONFIG11_SIZE, CONFIG11_KEYS = 512, 16
+PARITY11_SPHERE, PARITY11_SIZE = (40, 60), 64
+CONFIG11_CAMERA = dict(origin=(0.0, 3.0, 2.5), look_at=(0.0, 0.6, 0.0))
 # Rays of the few-group B4/B4s cases (8 groups at G = 32), and the list
 # entries B4 stages in shared memory (LIST_SH, csrc/pgwalk2.cu).
 FEW_RAYS, LIST_STAGED = 256, 256
@@ -999,9 +1038,10 @@ def check_image(label, img, size):
     return mean
 
 
-def timed_frames(tag, plan, cases, path, size, label, after_frame=None):
-    """Ten timed frames (keys 1..10) with the launch counts zeroed just
-    before and read just after; checks and prints the frame results.
+def timed_frames(tag, plan, cases, path, size, label, after_frame=None,
+                 frames=10):
+    """``frames`` timed frames (keys 1..) with the launch counts zeroed
+    just before and read just after; checks and prints the frame results.
     ``after_frame(i)``, if given, runs after frame i's timing ends."""
     import torch
 
@@ -1010,7 +1050,7 @@ def timed_frames(tag, plan, cases, path, size, label, after_frame=None):
     dev = plan.lights.position.device  # the scene's device
     tr.reset_launch_counts()
     times = []
-    for i in range(10):
+    for i in range(frames):
         key = rng.key(i + 1, dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1994,6 +2034,354 @@ def phase_grad(scene, cases, profile, dev):
           flush=True)
 
 
+def config9_map():
+    """``bench_suite.py`` config9's procedural diffuse map: a checker of 16
+    squares a side times two gradients, ``CONFIG9_MAP`` texels square."""
+    import numpy as np
+    yy, xx = np.mgrid[0:CONFIG9_MAP, 0:CONFIG9_MAP].astype(
+        np.float32) / CONFIG9_MAP
+    checker = (np.floor(xx * 16) + np.floor(yy * 16)) % 2
+    return np.stack([0.2 + 0.6 * checker, 0.3 + 0.5 * yy, 0.8 - 0.5 * xx],
+                    axis=-1).astype(np.float32)
+
+
+def textured_scene(flat, dev, quad_pack=True):
+    """config9's textured upload of ``flat``: the map's mip atlas
+    (``CONFIG9_MIPS`` levels), ``mip_lod_scale`` = 512 / (2 pi 2) texels
+    per world unit, every material textured with texture 0 (set after
+    the upload, as ``bench_suite.py`` does)."""
+    import numpy as np
+    import torch
+
+    from srt_tpu_torch.models import mesh
+    from srt_tpu_torch.utils.atlas import pack_atlas
+    at = pack_atlas([config9_map()], mip_levels=CONFIG9_MIPS)
+    s = mesh.upload(flat, dev, atlas=at.image, atlas_rects=at.rects,
+                    atlas_mip_rects=at.mip_rects,
+                    mip_lod_scale=512.0 / (2.0 * np.pi * 2.0),
+                    quad_pack=quad_pack)
+    return dataclasses.replace(
+        s, mat_use_texture=torch.ones_like(s.mat_use_texture),
+        mat_tex_index=torch.zeros_like(s.mat_tex_index))
+
+
+def config9_run(scene, lights, size):
+    """``bench_suite.py`` config9's ``make_run``: primaries from the
+    stream's first two slots, then ``trace_wavefront`` through
+    ``mesh_hit_fn(scene, method="walk", ray_tile=4096)``, 4 bounces,
+    bounce re-sort, ray cones.  Returns (``run(key) -> (radiance [3, N],
+    stats [4, 2])``, the hit fn)."""
+    from srt_tpu_torch.camera import derive_viewport, generate_rays
+    from srt_tpu_torch.config import CameraConfig, RenderConfig
+    from srt_tpu_torch.models import mesh, pathtracer
+    from srt_tpu_torch.ops import rng
+
+    cam = CameraConfig(width=size, height=size, **HEADLINE_CAMERA)
+    cfg = RenderConfig(max_depth=4, rr_bounces=0, spp=1, sort_bounces=True,
+                       ray_cones=True)
+    hit = mesh.mesh_hit_fn(scene, method="walk", ray_tile=4096)
+    n = size * size
+
+    def run(key):
+        stream = rng.KeyStream(key, n)
+        vp = derive_viewport(cam, device=key.device)
+        o, d = generate_rays(vp, size, size, stream.take(2))
+        return pathtracer.trace_wavefront(hit, lights, o, d, stream, cfg,
+                                          return_stats=True)
+
+    return run, hit
+
+
+def config11_scene(dev):
+    """``bench_suite.py`` config11's scene on ``dev``: the lamp cube (size
+    0.3, Ke (40, 32, 24)) beside and above the receiver cube, flattened
+    with ``pad_to=128`` (256 triangles: one supercluster), and its one dim
+    point light."""
+    import torch
+
+    from srt_tpu_torch.models import mesh
+    from srt_tpu_torch.scene import Lights
+    from srt_tpu_torch.utils import procgen
+    from srt_tpu_torch.utils.flatten import flatten_models
+    from srt_tpu_torch.utils.obj_loader import MaterialDef
+    lamp = procgen.cube(size=0.3, center=(0.9, 1.8, 0.6),
+                        material=MaterialDef(diffuse=(0.0, 0.0, 0.0),
+                                             specular=(0.0, 0.0, 0.0),
+                                             emissive=(40.0, 32.0, 24.0)))
+    recv = procgen.cube(size=2.2, center=(0.0, -0.4, 0.0),
+                        material=MaterialDef(diffuse=(0.7, 0.7, 0.7),
+                                             specular=(0.2, 0.2, 0.2)))
+    scene = mesh.upload(flatten_models([recv, lamp], pad_to=128), dev)
+    dim = Lights(position=torch.tensor([[0.0, 500.0, 0.0]], device=dev),
+                 color=torch.tensor([[1.0, 1.0, 1.0]], device=dev),
+                 intensity=torch.tensor([1e-6], device=dev))
+    return scene, dim
+
+
+def config11_frame(scene, dim, em, size, nee):
+    """config11's frame: ``trace_image_compact`` at the full-width
+    schedule (n, n, n), 3 bounces, bounce re-sort, the all-specular
+    shortcut, NEE toward ``em`` when ``nee``; ``frame(key) -> (image,
+    stats, overflow)``."""
+    from srt_tpu_torch.config import CameraConfig, RenderConfig
+    from srt_tpu_torch.models import mesh
+    from srt_tpu_torch.models.wavefront_compact import trace_image_compact
+    from srt_tpu_torch.ops import rng
+    cam = CameraConfig(width=size, height=size, **CONFIG11_CAMERA)
+    cfg = RenderConfig(max_depth=3, rr_bounces=0, nee=nee, sort_bounces=True,
+                       uniform_use_spec=True)
+    hit = mesh.mesh_hit_fn(scene, method="walk")
+    n = size * size
+    return lambda key: trace_image_compact(
+        hit, dim, cam, cfg, rng.KeyStream(key, n), (n, n, n),
+        return_stats=True, emitters=em if nee else None)
+
+
+def phase_textures_nee(scene, cases, profile, dev):
+    """Phase 11: textures and next-event estimation (``bench_suite.py``'s
+    config9 and config11), the textured render plan, card-vs-CPU parity
+    and gradients."""
+    import numpy as np
+    import torch
+
+    from srt_tpu_torch.camera import derive_viewport, generate_rays
+    from srt_tpu_torch.config import CameraConfig, RenderConfig
+    from srt_tpu_torch.models.emitters import (build_emitters,
+                                               emitter_indices,
+                                               scene_emitters)
+    from srt_tpu_torch.models.fastpath import make_render_plan
+    from srt_tpu_torch.ops import rng
+    from srt_tpu_torch.ops import traversal as tr
+    from srt_tpu_torch.scene import model_scene_lights
+    from srt_tpu_torch.utils.flatten import flatten_models
+    from srt_tpu_torch.utils.procgen import uv_sphere
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    lights = model_scene_lights(dev)
+
+    # (a) config9: the headline mesh textured, through the scan.
+    size = CONFIG9_SIZE
+    t0 = time.perf_counter()
+    tex = textured_scene(flatten_models([uv_sphere(*HEADLINE_SPHERE,
+                                                   radius=2.0)],
+                                        pad_to=128), dev)
+    check(all(x.is_cuda for x in (tex.atlas, tex.atlas_rects,
+                                  tex.atlas_mip_rects, tex.atlas_quad)),
+          "config9: the atlas tables are not on the card")
+    print(f"[11a] config9 scene: atlas {tuple(tex.atlas.shape)}, "
+          f"{tex.atlas_mip_rects.shape[1]} levels, quad table "
+          f"{tuple(tex.atlas_quad.shape)}, built in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    run_tex, hit_tex = config9_run(tex, lights, size)
+    run_plain, hit_plain = config9_run(scene, lights, size)
+    key0 = rng.key(0, dev)
+    out = []
+    launched = replay_frame("11a", lambda: out.append(run_tex(key0)), cases)
+    check(launched == set(SCAN_MESH_PATH),
+          f"the untimed config9 frame launched {sorted(launched)}")
+    stats = out[0][1]
+    rays = int(stats.sum())
+    times, results, launches = {}, {}, {}
+    for label, run in (("textured", run_tex), ("untextured", run_plain)):
+        tr.reset_launch_counts()
+        ts = []
+        for _ in range(CONFIG9_FRAMES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results[label] = run(key0)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        times[label] = ts
+        launches[label] = path_launches(f"config9 {label}", SCAN_MESH_PATH,
+                                        dict(tr.launch_counts))
+    color, st = results["textured"]
+    check(torch.equal(st, stats), "config9: the timed frame's stats differ "
+                                  "from the replayed frame's")
+    img = color.T.reshape(size, size, 3)
+    mean = check_image("config9", img, size)
+    # The textured albedo at the primary hits, against the untextured Kd.
+    n = size * size
+    cam = CameraConfig(width=size, height=size, **HEADLINE_CAMERA)
+    o, d = generate_rays(derive_viewport(cam, device=dev), size, size,
+                         torch.full((2, n), 0.5, device=dev))
+    zero = torch.zeros(n, device=dev)
+    rec_t = hit_tex(o, d, 1e-3, float("inf"), cone=(zero, zero))
+    rec_p = hit_plain(o, d, 1e-3, float("inf"))
+    hit = rec_p.hit
+    check(torch.equal(rec_t.hit, hit), "config9: textured and untextured "
+                                       "primaries hit differently")
+    alb_diff = float((rec_t.mat.albedo - rec_p.mat.albedo).abs().amax(0)
+                     [hit].mean())
+    alb_std = float(rec_t.mat.albedo[:, hit].std(1).max())
+    check(alb_diff > 0.05 and alb_std > 0.05,
+          f"config9: textured albedo differs from Kd by {alb_diff} (mean), "
+          f"spread {alb_std}")
+    dt = {k: sum(v) / len(v) for k, v in times.items()}
+    print(f"[11a] config9 textured {tex.model_tri_count[0]}-tri uv_sphere "
+          f"{size}x{size}, 4 bounces, mip atlas + ray cones: frame times "
+          f"(s) {[round(x, 6) for x in times['textured']]}, mean "
+          f"{dt['textured'] * 1e3:.3f} ms, {rays / dt['textured'] / 1e6:.4f}"
+          f" Mrays/s ({rays} rays a frame); untextured "
+          f"{[round(x, 6) for x in times['untextured']]}, mean "
+          f"{dt['untextured'] * 1e3:.3f} ms; textured / untextured time "
+          f"{dt['textured'] / dt['untextured']:.4f}; image mean {mean:.6f}; "
+          f"primary albedo vs Kd {alb_diff:.4f} (mean max-channel |diff|), "
+          f"std {alb_std:.4f}; launches in {CONFIG9_FRAMES} frames "
+          f"{launches['textured']}  [{cases.card}]", flush=True)
+    if profile:
+        profile_frame(lambda: run_tex(rng.key(99, dev)),
+                      f"config9 textured {size}x{size} (scan)",
+                      dt["textured"], profile)
+
+    # (b) the textured headline through the render plan, ray cones on.
+    cam = CameraConfig(width=TEX_PLAN_SIZE, height=TEX_PLAN_SIZE,
+                       **HEADLINE_CAMERA)
+    t0 = time.perf_counter()
+    plan = make_render_plan(tex, lights, cam, RenderConfig(
+        max_depth=4, rr_bounces=0, spp=1, ray_cones=True))
+    torch.cuda.synchronize()
+    print(f"[11b] textured plan: probe + schedule discovery "
+          f"{time.perf_counter() - t0:.3f} s, schedule {plan.schedule}",
+          flush=True)
+    launched = replay_frame("11b", lambda: plan.render(rng.key(0, dev)),
+                            cases)
+    check(launched == set(HEADLINE_PATH),
+          f"the untimed textured plan frame launched {sorted(launched)}")
+    dt_plan = {}
+    for label, s_ in (("textured", tex), ("untextured", scene)):
+        if label == "untextured":
+            plan = make_render_plan(s_, lights, cam, plan.cfg)
+        dt_plan[label] = timed_frames(
+            "11b", plan, cases, HEADLINE_PATH, TEX_PLAN_SIZE,
+            f"{label} headline plan ({TEX_PLAN_SIZE}x{TEX_PLAN_SIZE}, 4 "
+            f"bounces, ray cones)", frames=CONFIG9_FRAMES)[1]
+        if profile:
+            profile_frame(lambda: plan.render(rng.key(99, dev)),
+                          f"{label} headline plan, ray cones",
+                          dt_plan[label], profile)
+    print(f"[11b] textured / untextured plan frame time "
+          f"{dt_plan['textured'] / dt_plan['untextured']:.4f}  "
+          f"[{cases.card}]", flush=True)
+    del plan, run_tex, hit_tex
+
+    # (c) config11: NEE off and on, the same hit fn and driver.
+    scene11, dim = config11_scene(dev)
+    em = scene_emitters(scene11)
+    check(em is not None and em.v0.shape[0] == 12
+          and all(x.is_cuda for x in em), "config11: emitter tables")
+    size = CONFIG11_SIZE
+    keys = [rng.fold_in(rng.key(11, dev), i) for i in range(CONFIG11_KEYS)]
+    arms = {}
+    for nee in (False, True):
+        tag = "11c nee" if nee else "11c hit-only"
+        frame = config11_frame(scene11, dim, em, size, nee)
+        first = []
+        launched = replay_frame(tag, lambda: first.append(frame(keys[0])),
+                                cases)
+        check(launched == set(ONE_SUPER_PATH),
+              f"the config11 {tag} frame launched {sorted(launched)}")
+        frames = []
+        tr.reset_launch_counts()
+        t0 = time.perf_counter()
+        for k in keys:
+            img, st, ovf = frame(k)
+            check(int(ovf) == 0, f"config11 {tag}: overflow {int(ovf)}")
+            frames.append(img.cpu().numpy())
+        dt11 = (time.perf_counter() - t0) / len(keys)
+        found = path_launches(f"config11 {tag}", ONE_SUPER_PATH,
+                              dict(tr.launch_counts))
+        check("cull" not in found, f"config11 {tag}: B1 launched on a "
+                                   f"one-super scene")
+        frames = np.stack(frames)
+        check(bool(np.isfinite(frames).all()), f"config11 {tag}: "
+                                               f"non-finite pixels")
+        arms[nee] = (dt11, frames, first[0][1])
+        print(f"[{tag}] config11 {size}x{size}, 3 bounces: "
+              f"{dt11 * 1e3:.3f} ms a frame ({len(keys)} keys, host "
+              f"clock with the copy out, as bench_suite.py), stats "
+              f"{first[0][1].tolist()}, image mean {frames.mean():.6f}, "
+              f"launches in {len(keys)} frames {found}  [{cases.card}]",
+              flush=True)
+    shadow = {nee: int(arms[nee][2][:, 1].sum()) for nee in arms}
+    check(shadow[True] > shadow[False],
+          f"config11: NEE shadow queries {shadow[True]} not above the "
+          f"hit-only frame's {shadow[False]}")
+    lum = arms[False][1].sum(-1)
+    lit = lum.mean(0) > np.percentile(lum.mean(0), 80)
+    rel_std = {nee: float(arms[nee][1].sum(-1).std(0)[lit].mean()
+                          / max(arms[nee][1].sum(-1).mean(), 1e-9))
+               for nee in arms}
+    print(f"[11c] config11: frame {arms[True][0] * 1e3:.3f} ms with NEE, "
+          f"{arms[False][0] * 1e3:.3f} ms without, ratio "
+          f"{arms[True][0] / arms[False][0]:.4f}; emitter-lit relative "
+          f"luminance std {rel_std[True]:.6f} with NEE, {rel_std[False]:.6f}"
+          f" without, ratio {rel_std[True] / rel_std[False]:.4f}; shadow "
+          f"queries {shadow[True]} vs {shadow[False]}  [{cases.card}]",
+          flush=True)
+    if profile:
+        profile_frame(lambda: config11_frame(scene11, dim, em, size, True)(
+            rng.key(99, dev)), f"config11 NEE {size}x{size}",
+            arms[True][0], profile)
+    cam11 = CameraConfig(width=size, height=size, **CONFIG11_CAMERA)
+    plan11 = make_render_plan(scene11, dim, cam11, RenderConfig(
+        max_depth=3, rr_bounces=0, nee=True))
+    img, st, ovf = plan11.render(rng.key(1, dev))
+    check(int(ovf) == 0 and plan11.emitters is not None,
+          f"config11 NEE plan: overflow {int(ovf)}")
+    check_image("config11 NEE plan", img, size)
+    print(f"[11c] make_render_plan(nee=True): schedule {plan11.schedule}, "
+          f"overflow 0, stats {st.tolist()}", flush=True)
+
+    # (d) the card against the port's CPU run, one key on both devices.
+    small_flat = flatten_models([uv_sphere(*PARITY11_SPHERE, radius=2.0)],
+                                pad_to=128)
+    size = PARITY11_SIZE
+    got = {}
+    for d_ in (dev, cpu):
+        run, _ = config9_run(textured_scene(small_flat, d_),
+                             model_scene_lights(d_), size)
+        color, st = run(rng.key(5, d_))
+        sc, dm = config11_scene(d_)
+        img11, st11, _ = config11_frame(sc, dm, scene_emitters(sc), size,
+                                        True)(rng.key(6, d_))
+        got[d_.type] = ((color.T.reshape(size, size, 3).cpu(), st.cpu()),
+                        (img11.cpu(), st11.cpu()))
+    for k, label in enumerate(("textured + cones", "NEE")):
+        (img_d, st_d), (img_c, st_c) = got[dev.type][k], got["cpu"][k]
+        check(torch.equal(st_d, st_c), f"{label}: card stats "
+                                       f"{st_d.tolist()}, CPU {st_c.tolist()}")
+        check_image(label, img_d, size)
+        share, err = image_agreement(img_d, img_c)
+        check(share >= 0.995, f"{label}: {100 * share:.3f}% of pixels "
+                              f"within rtol 1e-4 / atol 1e-5 of the CPU run")
+        print(f"[11d] {label} {size}x{size}: card vs CPU stats equal "
+              f"{st_d.tolist()}, max |err| {err}, {100 * (1 - share):.4f}% "
+              f"of pixels differ beyond rtol 1e-4 / atol 1e-5  "
+              f"[{cases.card}]", flush=True)
+
+    # (e) gradients on the card: the atlas (no quad table), the emission.
+    tex_g = textured_scene(small_flat, dev, quad_pack=False)
+    atlas = tex_g.atlas.clone().requires_grad_(True)
+    run, _ = config9_run(dataclasses.replace(tex_g, atlas=atlas), lights,
+                         size)
+    run(rng.key(5, dev))[0].mean().backward()
+    peak_a = check_grads("d mean / d atlas", [atlas.grad])
+    sc, dm = config11_scene(dev)
+    ke = sc.mat_emissive.clone().requires_grad_(True)
+    sc = dataclasses.replace(sc, mat_emissive=ke)
+    em_g = build_emitters(sc, emitter_indices(sc))
+    config11_frame(sc, dm, em_g, size, True)(rng.key(6, dev))[0].mean(
+    ).backward()
+    peak_k = check_grads("d mean / d mat_emissive", [ke.grad])
+    print(f"[11e] gradients on the card: d mean / d atlas max |g| "
+          f"{peak_a[0]:.6e} ({int((atlas.grad != 0).sum())} texels), d mean "
+          f"/ d mat_emissive {ke.grad.tolist()}, max |g| {peak_k[0]:.6e}  "
+          f"[{cases.card}]", flush=True)
+    print(f"[11] texture and NEE phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="PATH")
@@ -2063,6 +2451,7 @@ def main(argv=None) -> int:
     phase_binned(scene, cases, args.profile)
     phase_scan(scene, cases, args.profile, dev)
     phase_grad(scene, cases, args.profile, dev)
+    phase_textures_nee(scene, cases, args.profile, dev)
 
     # Each kernel's first case, or its LINE_CASES case: device ms, plain ms
     # and bound of one call.  No single PyTorch call computes a cull, a
@@ -2080,7 +2469,7 @@ def main(argv=None) -> int:
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
             library_ms=None))
-    print(f"[11] all phases passed in {time.perf_counter() - t_start:.1f} s",
+    print(f"[12] all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -61,10 +61,13 @@ class RenderConfig:
     # Re-sort each shadow batch by (dead-last, light, origin cell) from
     # this bounce index on (None = off).
     sort_shadows_from: Optional[int] = None
-    # Next-event estimation toward emissive triangles (not ported yet:
-    # bounce_step raises NotImplementedError when it is on).
+    # Next-event estimation toward emissive triangles, combined with BSDF
+    # sampling by the balance heuristic; needs an emitter table
+    # (trace_wavefront / trace_image_compact ``emitters=``;
+    # make_render_plan builds it from the scene).
     nee: bool = False
-    # Ray-cone footprints for texture mips (not ported yet).
+    # Ray-cone footprints (width, spread) carried through the bounces to
+    # pick texture mips; without mips in the scene the LOD stays None.
     ray_cones: bool = False
     primary_spread: float = 0.0
     cone_diffuse_spread: float = 0.35

@@ -27,6 +27,7 @@ import torch
 
 from srt_tpu_torch.config import CameraConfig, RenderConfig
 from srt_tpu_torch.models import mesh as mesh_mod
+from srt_tpu_torch.models.emitters import Emitters, scene_emitters
 from srt_tpu_torch.models.wavefront_compact import (discover_schedule,
                                                     trace_image_compact)
 from srt_tpu_torch.ops import rng
@@ -119,12 +120,14 @@ class RenderPlan:
     schedule: tuple
     hit_fns: object
     lights: Lights
+    emitters: Optional[Emitters] = None
 
     def render(self, key: torch.Tensor):
         n = self.cam.width * self.cam.height * self.cfg.spp
         return trace_image_compact(self.hit_fns, self.lights, self.cam,
                                    self.cfg, rng.KeyStream(key, n),
-                                   self.schedule, return_stats=True)
+                                   self.schedule, return_stats=True,
+                                   emitters=self.emitters)
 
 
 def make_render_plan(scene, lights: Lights, cam: CameraConfig,
@@ -139,12 +142,11 @@ def make_render_plan(scene, lights: Lights, cam: CameraConfig,
     (bounce re-sort, the all-specular shading shortcut, shadow-batch
     re-sort from bounce 2), and probes one frame with ``key`` (default:
     ``rng.key(0)`` on the scene's device) to discover the width
-    schedule."""
+    schedule.  With ``cfg.nee`` the plan builds the scene's emitter
+    tables (``scene_emitters``) and hands them to the probe and to every
+    frame."""
     method = method or "walk"
     cfg = cfg or RenderConfig(max_depth=4, rr_bounces=0)
-    if cfg.nee:
-        raise NotImplementedError("next-event estimation is not ported "
-                                  "yet: ROADMAP.md queue A")
     on_walk = method == "walk"
     n_bounces = cfg.max_depth + cfg.rr_bounces
     cfg = dataclasses.replace(cfg, sort_bounces=on_walk and n_bounces > 1,
@@ -163,6 +165,8 @@ def make_render_plan(scene, lights: Lights, cam: CameraConfig,
         hit_fns = build_hit_fns(scene, dw, dws, method=method)
     else:
         hit_fns = build_hit_fns(scene, None, None, method=method)
-    schedule = discover_schedule(hit_fns, lights, cam, cfg, key)
+    emitters = scene_emitters(scene) if cfg.nee else None
+    schedule = discover_schedule(hit_fns, lights, cam, cfg, key,
+                                 emitters=emitters)
     return RenderPlan(cam=cam, cfg=cfg, schedule=schedule, hit_fns=hit_fns,
-                      lights=lights)
+                      lights=lights, emitters=emitters)

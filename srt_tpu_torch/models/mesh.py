@@ -16,7 +16,14 @@ is a candidate search outside the autograd graph; the exact refine of
 its winner is where its hits depend on them.  ``refit_accel`` rebuilds
 the walk tables after vertices move.
 
-Textured scenes (an atlas) and the BVH stack strategy are not ported yet.
+Textured scenes: ``upload(atlas=...)`` keeps a packed atlas, its rects,
+its mip rects and (``quad_pack``) the quad table on the scene's device;
+the hit record's albedo is then a bilinear or trilinear fetch at the
+winner's interpolated UV, its mip level chosen from the hit distance or,
+with ``cone=(width, spread)`` from ``RenderConfig.ray_cones``, from the
+ray cone's footprint (``_mip_lod``).
+
+The BVH stack strategy is not ported.
 """
 
 from __future__ import annotations
@@ -31,7 +38,10 @@ import torch
 from srt_tpu_torch.devices import resolve
 from srt_tpu_torch.models.pathtracer import Hit
 from srt_tpu_torch.ops import intersect, traversal, vec
+from srt_tpu_torch.ops.safemath import maximum
+from srt_tpu_torch.ops.texture import sample_atlas
 from srt_tpu_torch.scene import Materials
+from srt_tpu_torch.utils.atlas import build_quad_table
 from srt_tpu_torch.utils.flatten import FlatScene
 
 MISS = -1
@@ -46,7 +56,8 @@ ARRAY_FIELDS = (
     "tri_v0", "tri_v1", "tri_v2", "uv0", "uv1", "uv2", "tri_mat",
     "tri_n0", "tri_n1", "tri_n2", "mat_diffuse", "mat_specular",
     "mat_emissive", "mat_specular_ex", "mat_use_texture", "mat_tex_index",
-    "woop", "cluster_min", "cluster_max", "tri_vidx", "positions", "tri_adj",
+    "atlas", "atlas_rects", "atlas_mip_rects", "atlas_quad", "woop",
+    "cluster_min", "cluster_max", "tri_vidx", "positions", "tri_adj",
 )
 STATIC_FIELDS = (
     "mip_lod_scale", "model_first_node", "model_first_tri",
@@ -82,6 +93,12 @@ class MeshScene:
     mat_specular_ex: torch.Tensor  # [M]
     mat_use_texture: torch.Tensor  # [M] bool
     mat_tex_index: torch.Tensor    # [M] int32
+    atlas: Optional[torch.Tensor] = None            # [H, W, 3] or None
+    atlas_rects: Optional[torch.Tensor] = None      # [K, 4] (x, y, w, h)
+    atlas_mip_rects: Optional[torch.Tensor] = None  # [K, L, 4]
+    # [H*W, 12] quad table (utils/atlas.build_quad_table): one row gather
+    # per bilinear fetch; None when differentiating with respect to texels.
+    atlas_quad: Optional[torch.Tensor] = None
     woop: Optional[torch.Tensor] = None
     cluster_min: Optional[torch.Tensor] = None
     cluster_max: Optional[torch.Tensor] = None
@@ -107,15 +124,20 @@ class MeshScene:
         return self.frames.device
 
 
-def upload(scene: FlatScene, device=None, atlas=None) -> MeshScene:
+def upload(scene: FlatScene, device=None, atlas=None, atlas_rects=None,
+           atlas_mip_rects=None, mip_lod_scale: float = 0.0,
+           quad_pack: bool = True) -> MeshScene:
     """Host FlatScene -> MeshScene on ``device`` (None: the card,
     ``devices.resolve``).  A cluster-aligned scene (flatten_models
     pad_to=128) also gets the walk tables: the Woop table [C, 16, 128] and
-    the cluster AABBs."""
+    the cluster AABBs.
+
+    ``atlas`` [H, W, 3], ``atlas_rects`` [K, 4] and ``atlas_mip_rects``
+    [K, L, 4] (``utils/atlas.pack_atlas``) texture the materials with
+    ``mat_use_texture``; ``mip_lod_scale`` > 0 turns on the mip LOD
+    (``_mip_lod``).  ``quad_pack`` also builds the quad table on the host;
+    pass False to differentiate with respect to the atlas texels."""
     device = resolve(device)
-    if atlas is not None:
-        raise NotImplementedError("textured scenes are not ported yet: "
-                                  "ROADMAP.md queue A")
     t_total = scene.tri_v0.shape[0]
     firsts = [int(x) for x in scene.model_first_tri]
     padded_counts = tuple(
@@ -123,7 +145,19 @@ def upload(scene: FlatScene, device=None, atlas=None) -> MeshScene:
         for i in range(len(firsts)))
 
     arrays = {f: getattr(scene, f) for f in ARRAY_FIELDS
-              if f not in ("woop", "cluster_min", "cluster_max")}
+              if f not in ("woop", "cluster_min", "cluster_max", "atlas",
+                           "atlas_rects", "atlas_mip_rects", "atlas_quad")}
+    # float32 and int32, as ``jnp.asarray`` makes them in the JAX package.
+    arrays.update({f: None if x is None else np.asarray(x, dt)
+                   for f, x, dt in (("atlas", atlas, np.float32),
+                                    ("atlas_rects", atlas_rects, np.int32),
+                                    ("atlas_mip_rects", atlas_mip_rects,
+                                     np.int32))})
+    if quad_pack and atlas is not None and atlas_rects is not None:
+        arrays["atlas_quad"] = build_quad_table(
+            np.asarray(atlas), np.asarray(atlas_rects),
+            None if atlas_mip_rects is None
+            else np.asarray(atlas_mip_rects))
     cl = traversal.CLUSTER
     if t_total > 0 and t_total % cl == 0 and all(
             c % cl == 0 for c in padded_counts):
@@ -136,6 +170,7 @@ def upload(scene: FlatScene, device=None, atlas=None) -> MeshScene:
             traversal.build_clusters(scene.tri_v0, scene.tri_v1,
                                      scene.tri_v2)
     static = dict(
+        mip_lod_scale=float(mip_lod_scale),
         model_first_node=tuple(int(x) for x in scene.model_first_node),
         model_first_tri=tuple(firsts),
         model_tri_count=tuple(int(x) for x in scene.model_tri_count),
@@ -151,9 +186,6 @@ def scene_from_arrays(d: dict, static: dict, device) -> MeshScene:
     """Build a MeshScene from numpy arrays keyed by field name (for example
     ``np.asarray`` of each leaf of a JAX ``MeshScene``) and its static
     fields.  Missing or None optional fields stay None."""
-    if d.get("atlas") is not None:
-        raise NotImplementedError("textured scenes are not ported yet: "
-                                  "ROADMAP.md queue A")
     arrays = {}
     for f in ARRAY_FIELDS:
         x = d.get(f)
@@ -274,14 +306,83 @@ def _tri_record(scene: MeshScene) -> torch.Tensor:
     ], dim=1)
 
 
-def _record_material(rec_t) -> Materials:
+def _mip_lod(scene: MeshScene, t, cone=None):
+    """Mip level [N] of hits at distance ``t`` [N]; None when the scene has
+    no mips or ``mip_lod_scale`` is 0.
+
+    Without a cone: log2(t * scale), the distance heuristic.  With a ray
+    ``cone`` (width at the origin [N], spread [N]; RenderConfig.ray_cones)
+    the footprint at the hit is width + t * spread, and ``mip_lod_scale``
+    is texels per world unit (the GL analog: derivative-driven mipmapped
+    samplers, gpu_texture.h:39-53)."""
+    if scene.atlas_mip_rects is None or scene.mip_lod_scale <= 0.0:
+        return None
+    if cone is not None:
+        width, spread = cone
+        fp = width + t * spread
+        return torch.log2(maximum(fp * scene.mip_lod_scale, 1.0))
+    return torch.log2(maximum(t * scene.mip_lod_scale, 1.0))
+
+
+def _albedo(scene: MeshScene, kd, use_tex, tex_index, uv, t, cone):
+    """Kd [N, 3], or the atlas fetch at ``uv`` [N, 2] where ``use_tex``
+    [N] (trilinear through the mips when ``t`` is given and the scene has
+    them)."""
+    if scene.atlas is None:
+        return kd
+    lod = None if t is None else _mip_lod(scene, t, cone=cone)
+    tex_rgb = sample_atlas(scene.atlas, scene.atlas_rects, tex_index, uv,
+                           mip_rects=scene.atlas_mip_rects, lod=lod,
+                           quad=scene.atlas_quad)
+    return torch.where(use_tex[:, None], tex_rgb, kd)
+
+
+def triangle_material(scene: MeshScene, tri_idx, u, v, t=None,
+                      cone=None) -> Materials:
+    """OBJ material -> shading material (``TriangleToSupportedMat``,
+    raytrace_utils.glsl:140-175) of triangles ``tri_idx`` [N] at
+    barycentrics (u, v): the textured albedo at the interpolated UV, else
+    Kd; roughness 1/(Ns + eps); metalness 0.1; use_spec true.  Per-ray
+    fields are [N, 3] / [N], as in the JAX package."""
+    ti = tri_idx.long()
+    midx = scene.tri_mat[ti].long()
+    albedo = scene.mat_diffuse[midx]
+    if scene.atlas is not None:
+        uv = ((1.0 - u - v)[:, None] * scene.uv0[ti]
+              + u[:, None] * scene.uv1[ti]
+              + v[:, None] * scene.uv2[ti])
+        albedo = _albedo(scene, albedo, scene.mat_use_texture[midx],
+                         scene.mat_tex_index[midx], uv, t, cone)
+    n = ti.shape[0]
+    dev = ti.device
+    return Materials(
+        albedo=albedo,
+        specular=scene.mat_specular[midx],
+        roughness=1.0 / (scene.mat_specular_ex[midx] + ROUGHNESS_EPS),
+        metalness=torch.full((n,), MESH_METALNESS, dtype=torch.float32,
+                             device=dev),
+        use_spec=torch.ones((n,), dtype=torch.bool, device=dev),
+    )
+
+
+def _record_material(scene: MeshScene, rec_t, u, v, t=None,
+                     cone=None) -> Materials:
     """``TriangleToSupportedMat`` (raytrace_utils.glsl:140-175) from the
-    packed record [36, N]: Kd albedo, roughness 1/(Ns + eps), metalness
-    0.1, use_spec true."""
+    packed record [36, N]: Kd albedo, or the atlas fetch at the UV
+    interpolated at barycentrics (u, v) for textured materials (mip level
+    from ``t`` and ``cone``, ``_mip_lod``); roughness 1/(Ns + eps),
+    metalness 0.1, use_spec true."""
+    albedo = rec_t[15:18]
+    if scene.atlas is not None:
+        uv = ((1.0 - u - v)[None, :] * rec_t[9:11]
+              + u[None, :] * rec_t[11:13]
+              + v[None, :] * rec_t[13:15])
+        albedo = _albedo(scene, albedo.T, rec_t[22] > 0.5,
+                         rec_t[23].to(torch.int32), uv.T, t, cone).T
     n = rec_t.shape[1]
     dev = rec_t.device
     return Materials(
-        albedo=rec_t[15:18],
+        albedo=albedo,
         specular=rec_t[18:21],
         roughness=1.0 / (rec_t[21] + ROUGHNESS_EPS),
         metalness=torch.full((n,), MESH_METALNESS, dtype=torch.float32,
@@ -321,11 +422,13 @@ def mesh_hit_fn(scene: MeshScene, method: str = "walk",
                 kernel_tile: int = 0, binned=False, binned_anyhit=None,
                 plain: bool = False):
     """The integrator's closest-hit callable ``hit_fn(origins, dirs, t_min,
-    t_max, any_hit=False) -> Hit`` for a mesh scene: per-model frame
-    transform, traversal bounded by the running closest t across models,
-    exact Moller-Trumbore refine of the winner, smooth-normal blend, the
-    normal flipped to face the ray (``flip_normals``; False keeps the
-    interpolated normal as it is), and the winning triangle's material.
+    t_max, any_hit=False, cone=None) -> Hit`` for a mesh scene: per-model
+    frame transform, traversal bounded by the running closest t across
+    models, exact Moller-Trumbore refine of the winner, smooth-normal
+    blend, the normal flipped to face the ray (``flip_normals``; False
+    keeps the interpolated normal as it is), and the winning triangle's
+    material (textured where the scene has an atlas; ``cone`` = (width,
+    spread) [N] each picks the mip level from the ray cone's footprint).
 
     ``ray_tile > 0`` traces the rays in chunks of that many, one after the
     other (it bounds the dense sweep's working set); the result is the
@@ -358,7 +461,7 @@ def mesh_hit_fn(scene: MeshScene, method: str = "walk",
         raise ValueError(f"unknown traversal method: {method}")
     record = _tri_record(scene)
 
-    def hit_fn(origins, dirs, t_min, t_max, any_hit=False):
+    def hit_fn(origins, dirs, t_min, t_max, any_hit=False, cone=None):
         n = origins.shape[1]
         dev = origins.device
         best_t = torch.as_tensor(t_max, dtype=torch.float32,
@@ -435,7 +538,8 @@ def mesh_hit_fn(scene: MeshScene, method: str = "walk",
                 (best_b == b)[None, :], n_b, normal)
         normal = vec.normalize(normal)
 
-        p = origins + torch.where(hit, best_t, one)[None, :] * dirs
+        t_safe = torch.where(hit, best_t, one)
+        p = origins + t_safe[None, :] * dirs
         if flip_normals:
             facing = (normal * dirs).sum(0) < 0.0
             normal = torch.where(facing[None, :], normal, -normal)
@@ -443,21 +547,26 @@ def mesh_hit_fn(scene: MeshScene, method: str = "walk",
         emitted = torch.where(hit[None, :], rec_t[24:27],
                               torch.zeros_like(rec_t[24:27]))
         return Hit(hit=hit, t=best_t, p=p, normal=normal,
-                   mat=_record_material(rec_t), emitted=emitted,
+                   mat=_record_material(scene, rec_t, best_u, best_v,
+                                       t=t_safe, cone=cone),
+                   emitted=emitted,
                    tri=torch.where(hit, idx, torch.full_like(idx, -1)))
 
     if ray_tile <= 0:
         return hit_fn
 
-    def hit_tiled(origins, dirs, t_min, t_max, any_hit=False):
+    def hit_tiled(origins, dirs, t_min, t_max, any_hit=False, cone=None):
         n = origins.shape[1]
         if n <= ray_tile:
-            return hit_fn(origins, dirs, t_min, t_max, any_hit=any_hit)
+            return hit_fn(origins, dirs, t_min, t_max, any_hit=any_hit,
+                          cone=cone)
         t_max = torch.as_tensor(t_max, dtype=torch.float32,
                                 device=origins.device).expand(n)
         return _cat_hits([
             hit_fn(origins[:, a:a + ray_tile], dirs[:, a:a + ray_tile],
-                   t_min, t_max[a:a + ray_tile], any_hit=any_hit)
+                   t_min, t_max[a:a + ray_tile], any_hit=any_hit,
+                   cone=None if cone is None else
+                   (cone[0][a:a + ray_tile], cone[1][a:a + ray_tile]))
             for a in range(0, n, ray_tile)])
 
     return hit_tiled

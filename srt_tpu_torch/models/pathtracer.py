@@ -20,8 +20,15 @@ Sort keys are built in int64 (torch has only partial uint32 support); they
 order exactly like the JAX package's uint32 keys, and ``torch.argsort``
 runs stable like ``jnp.argsort``.
 
-Not ported yet: next-event estimation toward emissive triangles, ray
-cones and the ``shadow_fn`` hook.
+With ``cfg.ray_cones`` the carry holds each ray's cone (width at its
+origin, spread), which picks texture mips at the hit (``models/mesh.py``).
+With ``cfg.nee`` and an ``emitters`` table (``models/emitters.py``) each
+bounce also samples an emissive triangle and casts a shadow segment
+toward it (next-event estimation), combined with BSDF sampling by the
+one-sample balance heuristic; the carry then holds ``prev_pdf``, the
+mixture pdf of the direction that led to the hit.
+
+Not ported yet: the ``shadow_fn`` hook.
 """
 
 from __future__ import annotations
@@ -34,13 +41,20 @@ import torch
 
 from srt_tpu_torch.camera import derive_viewport, generate_rays
 from srt_tpu_torch.config import CameraConfig, RenderConfig
+from srt_tpu_torch.models import emitters as emitters_mod
 from srt_tpu_torch.ops import brdf, intersect, rng, vec
 from srt_tpu_torch.ops.gather import take_small_t
 from srt_tpu_torch.ops.morton import (PermutedStream, morton_perm,
                                       permute_rays, unpermute_image)
-from srt_tpu_torch.ops.safemath import clip
+from srt_tpu_torch.ops.safemath import clip, maximum
 from srt_tpu_torch.ops.vec import bc
 from srt_tpu_torch.scene import Lights, Materials, Spheres
+
+# MIS sentinel: "this direction was not density-sampled" (primary rays,
+# delta-specular bounces).  Large against any real area pdf, and far
+# from float32 overflow in prev_pdf + pdf_nee: the weight
+# prev_pdf / (prev_pdf + pdf_nee) is then exactly 1.0.
+_NO_MIS_PDF = 1e30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,15 +121,19 @@ def union_hit_fn(*hit_fns):
     """Combine closest-hit functions into one scene: the nearest hit wins
     (the reference switches spheres and models with ``showModel``,
     raytrace_compute.glsl:132-143; this takes both).  A hit fn without an
-    ``any_hit`` parameter is called without it.  Where one record carries
-    ``emitted`` or ``tri`` and the other does not, the missing one counts
-    as zeros and -1."""
+    ``any_hit`` or ``cone`` parameter is called without it.  Where one
+    record carries ``emitted`` or ``tri`` and the other does not, the
+    missing one counts as zeros and -1."""
     takes_any_hit = tuple(_supports_kw(fn, "any_hit") for fn in hit_fns)
+    takes_cone = tuple(_supports_kw(fn, "cone") for fn in hit_fns)
 
-    def closest_hit(origins, dirs, t_min, t_max, any_hit=False):
+    def closest_hit(origins, dirs, t_min, t_max, any_hit=False, cone=None):
         best = None
-        for fn, supported in zip(hit_fns, takes_any_hit):
+        for fn, supported, with_cone in zip(hit_fns, takes_any_hit,
+                                            takes_cone):
             kw = {"any_hit": any_hit} if supported else {}
+            if with_cone and cone is not None:
+                kw["cone"] = cone
             rec = fn(origins, dirs, t_min, t_max, **kw)
             if best is None:
                 best = rec
@@ -262,26 +280,46 @@ def bounce_step(closest_hit, lights: Lights, cfg: RenderConfig, carry,
     """One path-tracing bounce on a wavefront slice: the body of the scan
     integrator (``trace_wavefront``) and of the compact driver.
 
-    ``carry`` = (origins, dirs, throughput, color, alive, pix) in
-    wavefront order; ``u`` [D, W] is this bounce's uniform block already
-    in wavefront order.  ``sort`` re-sorts live rays first for the next
-    bounce (``_bounce_sort_keys``).  Returns (carry', stats [2] int32 =
-    (rays traced, shadow queries))."""
-    if emitters is not None and cfg.nee:
-        raise NotImplementedError("next-event estimation is not ported "
-                                  "yet: ROADMAP.md queue A")
+    ``carry`` = (origins, dirs, throughput, color, alive, pix), then
+    (cone_width, cone_spread) when ``cfg.ray_cones``, then ``prev_pdf``
+    when NEE is on (``emitters`` given and ``cfg.nee``), all in wavefront
+    order; ``u`` [D, W] is this bounce's uniform block already in
+    wavefront order (NEE reads 3 more slots, ``rng.bounce_slots``).
+    ``sort`` re-sorts live rays first for the next bounce
+    (``_bounce_sort_keys``).  Returns (carry', stats [2] int32 = (rays
+    traced, shadow queries))."""
+    nee_on = emitters is not None and cfg.nee
+    origins, dirs, throughput, color, alive, pix = carry[:6]
+    k = 6
+    cone = None
     if cfg.ray_cones:
-        raise NotImplementedError("ray cones are not ported yet: "
-                                  "ROADMAP.md queue A")
-    origins, dirs, throughput, color, alive, pix = carry
+        cwidth, cspread = carry[k], carry[k + 1]
+        cone = (cwidth, cspread)
+        k += 2
+    prev_pdf = carry[k] if nee_on else None
     num_lights = lights.count
+    takes_cone = cone is not None and _supports_kw(closest_hit, "cone")
     inf = torch.full_like(alive, float("inf"), dtype=torch.float32)
     rec = closest_hit(origins, dirs, cfg.t_min,
-                      torch.where(alive, inf, torch.zeros_like(inf)))
+                      torch.where(alive, inf, torch.zeros_like(inf)),
+                      **({"cone": cone} if takes_cone else {}))
     active = alive & rec.hit
 
+    # Emission: with NEE the hit-side credit carries the balance-heuristic
+    # weight prev_pdf / (prev_pdf + pdf_nee(hit)); primaries and
+    # delta-specular bounces arrive with the sentinel (weight 1.0), and
+    # non-emitters have tri_pdfa = 0 (weight 1 exactly).
     if rec.emitted is not None:
-        color = color + _masked(bc(active), throughput * rec.emitted)
+        credit = throughput * rec.emitted
+        if nee_on and rec.tri is not None:
+            pdfa_hit = emitters.tri_pdfa[torch.clamp_min(rec.tri, 0).long()]
+            cos_hit = (rec.normal * dirs).sum(0).abs()
+            # t guarded so no inf * 0 reaches an unselected where branch
+            # (it would poison the backward).
+            t_h = torch.where(active, rec.t, torch.ones_like(rec.t))
+            pdf_nee_hit = pdfa_hit * t_h * t_h / maximum(cos_hit, 1e-6)
+            credit = credit * bc(prev_pdf / (prev_pdf + pdf_nee_hit))
+        color = color + _masked(bc(active), credit)
 
     missed = alive & ~rec.hit
     color = color + _masked(bc(missed), throughput * _sky(dirs, cfg))
@@ -322,6 +360,36 @@ def bounce_step(closest_hit, lights: Lights, cfg: RenderConfig, carry,
         direct = torch.where(bc(rec.mat.use_spec), direct_spec, direct_diff)
     color = color + _masked(bc(active & sampled), throughput * direct)
 
+    # --- NEE toward emissive triangles (no reference analog) ---
+    u4 = u[2 * num_lights + 2:2 * num_lights + 6]
+    if nee_on:
+        u_nee = u[2 * num_lights + 6:2 * num_lights + 9]
+        x_l, n_l, le_s, pdf_a = emitters_mod.sample_emitters(
+            emitters, u_nee[0], u_nee[1], u_nee[2])
+        delta_l = x_l - rec.p
+        d2 = maximum(vec.norm2(delta_l), 1e-12)
+        dist = torch.sqrt(d2)
+        wi = delta_l / bc(dist)
+        cos_l = (n_l * wi).sum(0).abs()                  # two-sided Ke
+        front = (rec.normal * wi).sum(0) > 0.0
+        pdf_nee = pdf_a * d2 / maximum(cos_l, 1e-6)
+        # The same GGX half-vector draw as sample_indirect below, so the
+        # diffuse lobe's Fresnel matches the BSDF-side estimator.
+        h_rand = brdf.sample_ggx_half_vector(
+            rec.normal, rec.mat.roughness, u4[2], u4[3])
+        fcos, pdf_mix_l = brdf.eval_lobes_pdf(
+            rec.normal, view, wi, rec.mat, h_diffuse=h_rand)
+        nee_active = active & front & (cos_l > 1e-6)
+        # The segment is shrunk off the emitter so the sampled triangle
+        # does not occlude its own sample (the JAX package's 0.999, a
+        # reference fault the port keeps: ROADMAP.md queue C).
+        occ_nee = _occluded(closest_hit, rec.p, rec.p + delta_l * 0.999,
+                            cfg.t_min, nee_active)
+        vis = nee_active & ~occ_nee
+        # Balance heuristic folded: w_nee / pdf_nee = 1 / (pdf_nee + pdf_mix).
+        contrib = le_s * fcos * bc(1.0 / maximum(pdf_nee + pdf_mix_l, 1e-12))
+        color = color + _masked(bc(vis), throughput * contrib)
+
     # --- BRDF lobe selection (glsl:248-264) ---
     u_lobe = u[2 * num_lights]
     forced_spec = (rec.mat.metalness == 1.0) & (rec.mat.roughness == 0.0)
@@ -348,7 +416,6 @@ def bounce_step(closest_hit, lights: Lights, cfg: RenderConfig, carry,
     active = survived
 
     # --- Indirect bounce (glsl:276-285) ---
-    u4 = u[2 * num_lights + 2:2 * num_lights + 6]
     new_dir, weight, valid = brdf.sample_indirect(
         rec.p, rec.normal, view, rec.mat, take_spec,
         u4[0], u4[1], u4[2], u4[3])
@@ -359,21 +426,77 @@ def bounce_step(closest_hit, lights: Lights, cfg: RenderConfig, carry,
     throughput = torch.where(bc(cont), throughput * weight, throughput)
     origins = torch.where(bc(cont), rec.p, origins)
     dirs = torch.where(bc(cont), new_dir, dirs)
+    extra = ()
+    if cone is not None:
+        # Ray-cone update: the footprint grows along the segment, and the
+        # spread widens by the sampled lobe (specular by roughness,
+        # diffuse by a constant).
+        t_seg = torch.where(rec.hit, rec.t, torch.zeros_like(rec.t))
+        cwidth = torch.where(cont, cwidth + t_seg * cspread, cwidth)
+        dspread = torch.where(
+            take_spec, cfg.cone_spec_spread * rec.mat.roughness,
+            torch.full_like(cspread, cfg.cone_diffuse_spread))
+        cspread = torch.where(cont, cspread + dspread, cspread)
+        extra = (cwidth, cspread)
+    if nee_on:
+        # The mixture pdf of the direction just sampled: the next bounce's
+        # hit-side MIS weight.  Delta-specular choices carry the sentinel.
+        _, pdf_next = brdf.eval_lobes_pdf(rec.normal, view, new_dir,
+                                          rec.mat, h_diffuse=h_rand)
+        delta_choice = take_spec & (rec.mat.roughness == 0.0)
+        prev_pdf = torch.where(cont & ~delta_choice, pdf_next,
+                               torch.full_like(pdf_next, _NO_MIS_PDF))
+        extra = extra + (prev_pdf,)
 
     # Accounting: rays entering the bounce + shadow queries issued for
-    # active hits (a query resolved analytically above still counts).
-    stats = torch.stack([alive.sum(), active.sum()]).to(torch.int32)
+    # active hits (a query resolved analytically above still counts),
+    # NEE's segments included.
+    shadow_queries = active.sum()
+    if nee_on:
+        shadow_queries = shadow_queries + nee_active.sum()
+    stats = torch.stack([alive.sum(), shadow_queries]).to(torch.int32)
+    out = (origins, dirs, throughput, color, cont, pix) + extra
     if sort:
         order = torch.argsort(_bounce_sort_keys(origins, dirs, cont, bounce),
                               stable=True)
-        origins, dirs = origins[:, order], dirs[:, order]
-        throughput, color = throughput[:, order], color[:, order]
-        cont, pix = cont[order], pix[order]
-    return (origins, dirs, throughput, color, cont, pix), stats
+        out = tuple(x[..., order] for x in out)
+    return out, stats
+
+
+def initial_carry(origins, dirs, cfg: RenderConfig, nee_on: bool,
+                  pix=None):
+    """The bounce carry of fresh [3, N] rays: unit throughput, no colour,
+    all alive, ``pix`` (default 0..N-1), then zero-width cones of
+    ``cfg.primary_spread`` (``cfg.ray_cones``) and the no-MIS sentinel
+    (``nee_on``: emitters seen directly keep full credit)."""
+    n = origins.shape[1]
+    dev = origins.device
+    carry = (origins, dirs, torch.ones((3, n), device=dev),
+             torch.zeros((3, n), device=dev),
+             torch.ones((n,), dtype=torch.bool, device=dev),
+             torch.arange(n, device=dev) if pix is None else pix)
+    if cfg.ray_cones:
+        carry = carry + (torch.zeros((n,), device=dev),
+                         torch.full((n,), cfg.primary_spread, device=dev))
+    if nee_on:
+        carry = carry + (torch.full((n,), _NO_MIS_PDF, device=dev),)
+    return carry
+
+
+def with_primary_spread(cfg: RenderConfig, cam: CameraConfig):
+    """``cfg`` with ``primary_spread`` set, where ray cones are on and it
+    is 0, to one pixel's footprint per unit t at the reference viewport
+    (1x1 at ``focus_dist``)."""
+    if cfg.ray_cones and cfg.primary_spread == 0.0:
+        return dataclasses.replace(
+            cfg, primary_spread=1.0 / (cam.focus_dist
+                                       * min(cam.width, cam.height)))
+    return cfg
 
 
 def trace_wavefront(closest_hit, lights: Lights, origins, dirs, stream,
-                    cfg: RenderConfig, return_stats: bool = False):
+                    cfg: RenderConfig, return_stats: bool = False,
+                    emitters=None):
     """Trace a ``[3, N]`` ray batch to radiance ``[3, N]``: the JAX
     package's ``lax.scan`` over ``max_depth + rr_bounces`` bounces as a
     loop, every bounce at the full width N (dead rays trace with
@@ -384,29 +507,30 @@ def trace_wavefront(closest_hit, lights: Lights, origins, dirs, stream,
     reshaped to [B, D, N]; with ``cfg.sort_bounces`` each bounce's block
     is gathered by the rays' pixel ids, and the radiance is scattered back
     to pixel order at the end.  With ``return_stats`` also returns the
-    per-bounce (rays traced, shadow queries) [B, 2] int32."""
+    per-bounce (rays traced, shadow queries) [B, 2] int32.
+
+    ``emitters`` (``models/emitters.py``) with ``cfg.nee`` turns on
+    next-event estimation: each bounce then takes 3 more slots."""
     n = origins.shape[1]
     dev = origins.device
     n_bounces = cfg.max_depth + cfg.rr_bounces
-    d_slots = rng.bounce_slots(lights.count)
+    nee_on = emitters is not None and cfg.nee
+    d_slots = rng.bounce_slots(lights.count, nee_on)
     u_bounce = stream.take(n_bounces * d_slots).reshape(n_bounces, d_slots, n)
     # The JAX scan traces the bounce index, so its sorted shadow batches
     # (``isinstance(bounce, int)``) never run there; the loop here passes
     # ints, so the sort is switched off to trace the same batches.
     cfg = dataclasses.replace(cfg, sort_shadows_from=None)
-    carry = (origins, dirs, torch.ones((3, n), device=dev),
-             torch.zeros((3, n), device=dev),
-             torch.ones((n,), dtype=torch.bool, device=dev),
-             torch.arange(n, device=dev))
+    carry = initial_carry(origins, dirs, cfg, nee_on)
     stats = []
     for b in range(n_bounces):
         u = u_bounce[b]
         if cfg.sort_bounces:
             u = u[:, carry[5]]
         carry, st = bounce_step(closest_hit, lights, cfg, carry, b, u,
-                                sort=cfg.sort_bounces)
+                                sort=cfg.sort_bounces, emitters=emitters)
         stats.append(st)
-    _, dirs, throughput, color, alive, pix = carry
+    _, dirs, throughput, color, alive, pix = carry[:6]
     color = color + _masked(bc(alive), throughput * _sky(dirs, cfg))
     if cfg.sort_bounces:
         out = torch.zeros_like(color)
@@ -425,10 +549,9 @@ def trace_image_sample(closest_hit, lights: Lights, cam: CameraConfig,
     defocus slots when ``cam.defocus_angle > 0``) and ``trace_wavefront``,
     in Morton order when ``cfg.morton_order``.  Returns linear radiance
     [H, W, 3] (and the [B, 2] stats with ``return_stats``) on the
-    stream's device."""
-    if cfg.ray_cones:
-        raise NotImplementedError("ray cones are not ported yet: "
-                                  "ROADMAP.md queue A")
+    stream's device.  With ``cfg.ray_cones`` and no ``primary_spread``,
+    the spread is one pixel's footprint (``with_primary_spread``)."""
+    cfg = with_primary_spread(cfg, cam)
     jitter = stream.take(2)
     defocus = stream.take(2) if cam.defocus_angle > 0 else None
     vp = derive_viewport(cam, origin=origin, look_at=look_at,

@@ -35,7 +35,7 @@ GRANULE = 4096
 
 def trace_compact(closest_hit, lights: Lights, origins, dirs, stream,
                   cfg: RenderConfig, schedule: Sequence[int], pix_init=None,
-                  return_stats: bool = False):
+                  return_stats: bool = False, emitters=None):
     """Compacted wavefront trace of [3, N] rays.
 
     ``closest_hit`` is one hit fn or one per bounce; ``schedule`` holds
@@ -44,7 +44,10 @@ def trace_compact(closest_hit, lights: Lights, origins, dirs, stream,
     ``pix_init`` (a permutation of 0..N-1) maps wavefront position to
     pixel.  Returns pixel-order radiance [3, N] and, with
     ``return_stats``, stats [B, 2] int32 and the overflow count (int32
-    scalar tensor)."""
+    scalar tensor).  ``emitters`` with ``cfg.nee`` turns on next-event
+    estimation (3 more slots a bounce); the carry's cone and ``prev_pdf``
+    channels are sliced with the rest, so they stay aligned with
+    ``pix``."""
     n = origins.shape[1]
     dev = origins.device
     n_bounces = cfg.max_depth + cfg.rr_bounces
@@ -62,14 +65,13 @@ def trace_compact(closest_hit, lights: Lights, origins, dirs, stream,
         raise ValueError("schedule[0] must cover every primary ray")
     if any(a < b for a, b in zip(schedule, schedule[1:])):
         raise ValueError("schedule must be non-increasing")
-    d_slots = bounce_slots(lights.count)
+    nee_on = emitters is not None and cfg.nee
+    d_slots = bounce_slots(lights.count, nee_on)
     u_blk = stream.take_block(n_bounces * d_slots)
 
-    pix = (torch.arange(n, device=dev) if pix_init is None
+    pix = (None if pix_init is None
            else torch.as_tensor(np.asarray(pix_init), device=dev).long())
-    carry = (origins, dirs, torch.ones((3, n), device=dev),
-             torch.zeros((3, n), device=dev),
-             torch.ones((n,), dtype=torch.bool, device=dev), pix)
+    carry = pathtracer.initial_carry(origins, dirs, cfg, nee_on, pix)
     pix_chunks, color_chunks, stats = [], [], []
     overflow = torch.zeros((), dtype=torch.int32, device=dev)
     for b in range(n_bounces):
@@ -81,14 +83,14 @@ def trace_compact(closest_hit, lights: Lights, origins, dirs, stream,
                           for x in carry)
         u = u_blk.rows_at(b * d_slots, (b + 1) * d_slots, carry[5])
         carry, st = pathtracer.bounce_step(hit_fns[b], lights, cfg, carry, b,
-                                           u, sort=True)
+                                           u, sort=True, emitters=emitters)
         stats.append(st)
         if b + 1 < n_bounces:
             n_alive = carry[4].sum(dtype=torch.int32)
             overflow = overflow + torch.clamp_min(n_alive - schedule[b + 1], 0)
 
     # Paths alive after the last bounce are truncated as a miss.
-    origins, dirs, throughput, color, alive, pix = carry
+    origins, dirs, throughput, color, alive, pix = carry[:6]
     color = color + torch.where(bc(alive),
                                 throughput * pathtracer._sky(dirs, cfg),
                                 torch.zeros_like(color))
@@ -103,13 +105,16 @@ def trace_compact(closest_hit, lights: Lights, origins, dirs, stream,
 
 def trace_image_compact(closest_hit, lights: Lights, cam: CameraConfig,
                         cfg: RenderConfig, stream, schedule: Sequence[int],
-                        return_stats: bool = False):
+                        return_stats: bool = False, emitters=None):
     """One full image via the compacted trace; linear [H, W, 3].
 
     ``cfg.spp`` samples per pixel are traced in one wavefront, a pixel's
     samples adjacent (sample id = pixel * spp + s); the image is their
     mean.  The stream must cover ``spp * W * H`` rays and
-    ``schedule[0]`` must equal that total."""
+    ``schedule[0]`` must equal that total.  With ``cfg.ray_cones`` and
+    no ``primary_spread``, the spread is one pixel's footprint;
+    ``emitters`` as in ``trace_compact``."""
+    cfg = pathtracer.with_primary_spread(cfg, cam)
     k = cfg.spp
     n_pix = cam.width * cam.height
     jitter = stream.take(2)                                   # [2, K*N]
@@ -127,7 +132,7 @@ def trace_image_compact(closest_hit, lights: Lights, cam: CameraConfig,
         pix_init = perm
     out = trace_compact(closest_hit, lights, origins, dirs, stream, cfg,
                         schedule, pix_init=pix_init,
-                        return_stats=return_stats)
+                        return_stats=return_stats, emitters=emitters)
     radiance = out[0] if return_stats else out
     if k > 1:
         radiance = radiance.T.reshape(n_pix, k, 3).mean(1).T
@@ -140,15 +145,15 @@ def trace_image_compact(closest_hit, lights: Lights, cam: CameraConfig,
 def discover_schedule(closest_hit, lights: Lights, cam: CameraConfig,
                       cfg: RenderConfig, key: torch.Tensor,
                       margin: float = 1.25, min_width: int = GRANULE,
-                      granule: int = GRANULE) -> tuple:
-    """Run one full-width probe frame drawn from ``key`` (``ops/rng.key``)
-    and round its per-bounce alive counts (times ``margin``) up to
-    ``granule`` widths."""
+                      granule: int = GRANULE, emitters=None) -> tuple:
+    """Run one full-width probe frame drawn from ``key`` (``ops/rng.key``;
+    with ``emitters`` as the frames will) and round its per-bounce alive
+    counts (times ``margin``) up to ``granule`` widths."""
     n = cam.width * cam.height * cfg.spp
     full = tuple([n] * (cfg.max_depth + cfg.rr_bounces))
     _, stats, _ = trace_image_compact(
         closest_hit, lights, cam, cfg, KeyStream(key, n), full,
-        return_stats=True)
+        return_stats=True, emitters=emitters)
     counts = stats[:, 0].cpu().numpy()
     sched = [n]
     for b in range(1, len(counts)):

@@ -1,5 +1,6 @@
 """GGX microfacet BRDF, batched over ray wavefronts (counterpart of
-``srt_tpu/ops/brdf.py``): only what ``pathtracer.bounce_step`` calls.
+``srt_tpu/ops/brdf.py``): only what ``pathtracer.bounce_step`` calls,
+``eval_lobes_pdf`` (next-event estimation) among it.
 
 Cook-Torrance GGX with Smith height-correlated masking, Schlick Fresnel,
 cosine-weighted diffuse + GGX half-vector sampling, RIS over point lights
@@ -275,6 +276,55 @@ def sample_indirect(p, normal, view_dir, mat: Materials, take_specular,
         & (dot(normal, direction) > 0.0)
     )
     return direction, weight, valid
+
+
+def eval_lobes_pdf(normal, view_dir, direction, mat: Materials,
+                   h_diffuse=None):
+    """The integrand ``sample_indirect`` implies at an arbitrary
+    ``direction`` and the density of its lobe mixture there, for
+    next-event estimation and its balance-heuristic weights.  Returns
+    ``(fcos [3, N], pdf_mix [N])``:
+
+    * ``fcos``: per lobe, ``sample_indirect``'s weight times the lobe's
+      pdf at ``direction``, summed over the lobes, so NEE and BSDF
+      sampling estimate the same integral;
+    * ``pdf_mix``: the solid-angle density of the lobe mixture chosen by
+      ``brdf_probability``.
+
+    ``h_diffuse`` is the GGX half-vector sample whose Fresnel the diffuse
+    weight uses; pass the bounce's own draw for an exact match with
+    ``sample_indirect``.  The roughness-0 specular lobe is a delta: its
+    pdf and fcos are 0 here (the hit-side weight covers it with the
+    ``_NO_MIS_PDF`` sentinel of ``models/pathtracer.bounce_step``)."""
+    p_spec = brdf_probability(mat, view_dir, normal)
+    n_dot_l = saturate(dot(normal, direction))
+    pdf_diff = n_dot_l / PI
+
+    h = vec.normalize(view_dir + direction, fallback=normal)
+    n_dot_h = saturate(dot(normal, h))
+    v_dot_h = clip(dot(view_dir, h), 1e-5, 1.0)
+    # The sampler's NDF parameter is roughness^2 (BrdfData.alpha), not
+    # alpha_squared.
+    data = brdf_data(normal, direction, view_dir, mat)
+    nd = ggx_ndf(n_dot_h, data.alpha)
+    live_spec = data.alpha > 0.0
+    pdf_spec = torch.where(live_spec, nd * n_dot_h / (4.0 * v_dot_h),
+                           torch.zeros_like(nd))
+
+    f0 = data.specular_f0
+    h_dot_l = clip(dot(h, direction), 1e-5, 1.0)
+    w_spec = fresnel_schlick(f0, shadowed_f90(f0), h_dot_l) * bc(
+        specular_sample_weight(
+            data.alpha_squared, clip(dot(normal, direction), 1e-5, 1.0)))
+    if h_diffuse is None:
+        h_diffuse = h
+    vdh_d = clip(dot(view_dir, h_diffuse), 1e-5, 1.0)
+    w_diff = data.diffuse_reflectance * (
+        1.0 - fresnel_schlick(f0, shadowed_f90(f0), vdh_d))
+
+    fcos = w_spec * bc(pdf_spec) + w_diff * bc(pdf_diff)
+    pdf_mix = p_spec * pdf_spec + (1.0 - p_spec) * pdf_diff
+    return fcos, pdf_mix
 
 
 def sample_lights_ris(p, lights: Lights, u_idx, u_sel):

@@ -91,9 +91,22 @@ def test_scene_from_arrays_round_trip():
     back = {f: (None if getattr(port, f) is None
                 else getattr(port, f).numpy()) for f in mesh.ARRAY_FIELDS}
     assert_scene_equal(mesh.scene_from_arrays(back, static, "cpu"), d, static)
-    with pytest.raises(NotImplementedError):
-        mesh.scene_from_arrays({**d, "atlas": np.zeros((2, 2, 3))}, static,
-                               "cpu")
+    # A textured scene: the atlas, its rects, mip rects and quad table
+    # round-trip too.
+    from srt_tpu.utils.atlas import pack_atlas
+    img = np.random.default_rng(1).uniform(size=(12, 10, 3)).astype(
+        np.float32)
+    at = pack_atlas([img], mip_levels=3)
+    d, static = jax_scene_arrays(jax_mesh.upload(
+        jax_flatten([jax_procgen.uv_sphere(12, 18)], pad_to=128),
+        atlas=at.image, atlas_rects=at.rects, atlas_mip_rects=at.mip_rects,
+        mip_lod_scale=3.0))
+    assert d["atlas_quad"] is not None and static["mip_lod_scale"] == 3.0
+    port = mesh.scene_from_arrays(d, static, "cpu")
+    assert_scene_equal(port, d, static)
+    back = {f: (None if getattr(port, f) is None
+                else getattr(port, f).numpy()) for f in mesh.ARRAY_FIELDS}
+    assert_scene_equal(mesh.scene_from_arrays(back, static, "cpu"), d, static)
 
 
 def test_build_woop_and_clusters_match_jax():

@@ -167,6 +167,30 @@ def test_render_plan_walk_matches_dense(port_scene, spp):
     assert float((diff > 1e-5).float().mean()) < 0.005
 
 
+def port_lamp_plan():
+    """A render plan with NEE on ``tests/test_nee.py``'s lamp scene
+    (pad_to=128: the walk), 16x16, 3 bounces."""
+    from srt_tpu_torch.scene import Lights
+    from srt_tpu_torch.utils import procgen
+    from srt_tpu_torch.utils.flatten import flatten_models
+    from srt_tpu_torch.utils.obj_loader import MaterialDef
+    lamp = procgen.cube(size=0.3, center=(0.9, 1.8, 0.6),
+                        material=MaterialDef(diffuse=(0.0, 0.0, 0.0),
+                                             specular=(0.0, 0.0, 0.0),
+                                             emissive=(40.0, 32.0, 24.0)))
+    recv = procgen.cube(size=2.2, center=(0.0, -0.4, 0.0),
+                        material=MaterialDef(diffuse=(0.7, 0.7, 0.7),
+                                             specular=(0.2, 0.2, 0.2)))
+    scene = mesh.upload(flatten_models([recv, lamp], pad_to=128), "cpu")
+    dim = Lights(position=torch.tensor([[0.0, 500.0, 0.0]]),
+                 color=torch.tensor([[1.0, 1.0, 1.0]]),
+                 intensity=torch.tensor([1e-6]))
+    return fastpath.make_render_plan(
+        scene, dim, CameraConfig(width=16, height=16, origin=(0.0, 3.0, 2.5),
+                                 look_at=(0.0, 0.6, 0.0)),
+        RenderConfig(max_depth=3, rr_bounces=0, nee=True))
+
+
 def test_walk_parsing_and_validation(port_scene):
     from srt_tpu_torch.scene import model_scene_lights
     assert fastpath.parse_walk("tiled@256") == (False, 256)
@@ -179,17 +203,30 @@ def test_walk_parsing_and_validation(port_scene):
                                   CameraConfig(**CAM),
                                   RenderConfig(max_depth=2, rr_bounces=0),
                                   walks="tiled@256,pg2:96:4")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fastpath.make_render_plan(port_scene, model_scene_lights("cpu"),
-                                  CameraConfig(**CAM),
-                                  RenderConfig(max_depth=2, nee=True))
+    # cfg.nee: the plan builds the scene's emitter tables and renders
+    # with them (none here: the sphere does not emit, so the frame equals
+    # the plan's without NEE).
+    plans = [fastpath.make_render_plan(
+        port_scene, model_scene_lights("cpu"), CameraConfig(**CAM),
+        RenderConfig(max_depth=2, rr_bounces=0, nee=nee))
+        for nee in (False, True)]
+    assert plans[1].cfg.nee and plans[1].emitters is None
+    frames = [p.render(rng.key(3, "cpu")) for p in plans]
+    assert int(frames[1][2]) == 0
+    assert torch.equal(frames[0][0], frames[1][0])
+    lamp = port_lamp_plan()
+    assert lamp.emitters is not None and lamp.emitters.v0.shape == (12, 3)
+    img, stats, overflow = lamp.render(rng.key(4, "cpu"))
+    assert int(overflow) == 0 and bool(torch.isfinite(img).all())
+    assert img.shape == (16, 16, 3) and float(img.mean()) > 0.01
     w, ws = fastpath.default_walks(port_scene, 4)
     assert len(w) == len(ws) == 4
 
 
 def test_port_imports_no_jax():
-    """Every port module, the trainer (``optim``) among them, imports
-    without JAX, optax or the JAX package."""
+    """Every port module, the trainer (``optim``), the atlas host code,
+    texture sampling and the emitter tables among them, imports without
+    JAX, optax or the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import srt_tpu_torch\n"
@@ -197,8 +234,10 @@ def test_port_imports_no_jax():
         "    srt_tpu_torch.__path__, 'srt_tpu_torch.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "assert len(mods) >= 21, mods\n"
-        "assert 'srt_tpu_torch.optim' in mods, mods\n"
+        "assert len(mods) >= 24, mods\n"
+        "for m in ('optim', 'utils.atlas', 'ops.texture',\n"
+        "          'models.emitters'):\n"
+        "    assert 'srt_tpu_torch.' + m in mods, mods\n"
         "bad = [m for m in sys.modules\n"
         "       if m in ('jax', 'optax', 'srt_tpu')\n"
         "       or m.startswith(('jax.', 'optax.', 'srt_tpu.'))]\n"
