@@ -135,11 +135,39 @@ Phases, one line each; the last line is printed only when all pass:
    (e) d mean / d atlas (``quad_pack=False``) and d mean / d
    mat_emissive on the card: finite and nonzero.  The phase prints its
    seconds.
+12. The app layer (``srt_tpu_torch.app.RenderSession``).  (a) A
+   ``RenderSession(fast=True)`` on the headline mesh at 1024x1024, the
+   headline camera, 4 bounces: its probed schedule, 8 frames (launch
+   counts zeroed just before and read just after: B1-B4 and threefry,
+   launches a frame), frames_accumulated, a finite display in [0, 1];
+   then 10 rounds of one frame of a render plan built at the session's
+   pose, one ``step(fetch=True)`` and one ``step(fetch=False)``, each
+   timed (host clock, ending in ``torch.cuda.synchronize()``): ms a frame,
+   fps and Mrays/s from a ``RaysPerSecondMeter`` fed with the plan's
+   stats.  (b) ``move(forward=0.5)`` clears the accumulation, and the
+   next frame equals, bit for bit, the frame of ``make_render_plan`` at
+   ``camera.config(cam)`` from the same folded key.  (c) A session probed
+   from (0, 1, -5) facing away from the sphere (the minimum schedule),
+   then ``rotate(180, 0)``: the next frame overflows once, is traced again
+   at full width (equal bit for bit to the full-width frame at that
+   pose), and the schedule stays widened.  (d) One session frame whose
+   every kernel launch is replayed through its plain version and timed
+   beside its bound.  (e) Sessions on ``uv_sphere(40, 60)`` (the scan
+   over the walk) and ``uv_sphere(80, 120)`` (the fast path), 64x64, 2
+   frames, a move and a frame, on the card against the CPU: the image
+   criterion of 9a on the accumulation buffers.  (f) ``validate_every=2``
+   on a headline session: the report is ok; an injected NaN texel is
+   healed (count 1).  (g) config10b's trainer with ``checkpoint_path``
+   in a temporary directory: 6 steps twice straight, and 3 steps plus a
+   resume to 6; the resumed parameters differ from the straight run's by
+   no more than the two straight runs differ.  The phase prints its
+   seconds.
 
 Each path (the headline frames, the config8 frames, the counter run, the
 binned frames, the pg frames, the scan frames of phase 9, the backward
 passes and the optimizer steps of phase 10, the config9, textured-plan
-and config11 frames of phase 11) is driven with
+and config11 frames of phase 11, the session frames of phase 12) is
+driven with
 the launch counts set to 0 just before it and read just after; every
 kernel must be launched by its path.  Each replayed B4/B4s launch also prints its groups, the clusters
 its lists name and the split P its wrapper chose; each B7 launch its
@@ -165,8 +193,8 @@ one call.
 frame of each render (headline, config8, binned, pg, and phase 9's
 config2, config6 and config3, phase 11's config9, textured and
 untextured plan and config11 NEE frames) and of phase 10's config6
-forward + backward, config2's and config3's to PATH (the source of
-PERF.md section 5).
+forward + backward, config2's and config3's, and of one step of phase
+12's headline session to PATH (the source of PERF.md section 5).
 """
 
 from __future__ import annotations
@@ -253,6 +281,14 @@ TEX_PLAN_SIZE = 1024
 CONFIG11_SIZE, CONFIG11_KEYS = 512, 16
 PARITY11_SPHERE, PARITY11_SIZE = (40, 60), 64
 CONFIG11_CAMERA = dict(origin=(0.0, 3.0, 2.5), look_at=(0.0, 0.6, 0.0))
+# Phase 12 (the app layer): the headline session's untimed and timed
+# frames, the pose whose probe sees only sky (the session's camera looks
+# down -z from its origin, away from the sphere), the card-vs-CPU
+# sessions' image size and their second mesh (uv_sphere rows, cols: 10
+# superclusters, above the session's fast-path threshold of 8).
+SESSION_FRAMES, SESSION_TIMED = 8, 10
+OVERFLOW_CAMERA = dict(origin=(0.0, 1.0, -5.0), look_at=(0.0, 1.0, -6.0))
+PARITY12_SIZE, SESSION_PARITY_SPHERE = 64, (80, 120)
 # Rays of the few-group B4/B4s cases (8 groups at G = 32), and the list
 # entries B4 stages in shared memory (LIST_SH, csrc/pgwalk2.cu).
 FEW_RAYS, LIST_STAGED = 256, 256
@@ -2382,6 +2418,285 @@ def phase_textures_nee(scene, cases, profile, dev):
           flush=True)
 
 
+def session_step(session, fetch):
+    """One ``session.step(fetch=fetch)`` on the host clock, ending when the
+    display is on the host (``fetch``) or finished on the card; returns
+    (seconds, display)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    display = session.step(fetch=fetch)
+    if not fetch:
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0, display
+
+
+def check_display(label, display, size):
+    """A display image (numpy or tensor): [size, size, 3], finite, within
+    [0, 1]; returns (min, max, mean)."""
+    import torch
+    d = torch.as_tensor(display)
+    check(tuple(d.shape) == (size, size, 3),
+          f"{label}: display shape {tuple(d.shape)}")
+    check(bool(torch.isfinite(d).all()), f"{label}: non-finite display")
+    lo, hi = float(d.min()), float(d.max())
+    check(0.0 <= lo and hi <= 1.0, f"{label}: display in [{lo}, {hi}]")
+    return lo, hi, float(d.mean())
+
+
+def phase_app(scene, cases, profile, dev):
+    """Phase 12: the app layer, ``RenderSession``'s progressive frame
+    loop on the headline mesh, and the trainer's checkpoint resume."""
+    import tempfile
+
+    import torch
+
+    from srt_tpu_torch import app, optim
+    from srt_tpu_torch.config import CameraConfig, RenderConfig
+    from srt_tpu_torch.models.fastpath import make_render_plan
+    from srt_tpu_torch.models.wavefront_compact import GRANULE
+    from srt_tpu_torch.ops import rng
+    from srt_tpu_torch.ops import traversal as tr
+    from srt_tpu_torch.ops.rng import KeyStream
+    from srt_tpu_torch.scene import model_scene_lights
+    from srt_tpu_torch.utils.profiling import RaysPerSecondMeter
+
+    t_phase = time.perf_counter()
+    card = cases.card
+    size = HEADLINE_SIZE
+    n = size * size
+    lights = model_scene_lights(dev)
+    cam = CameraConfig(width=size, height=size, **HEADLINE_CAMERA)
+    cfg = RenderConfig(max_depth=4, rr_bounces=0, spp=1)
+    key0 = rng.key(0, dev)
+
+    # (a) The headline session: SESSION_FRAMES frames with the launch
+    # counts zeroed just before and read just after, then SESSION_TIMED
+    # rounds of one plan frame at the session's pose (the key of the
+    # session's next frame), one fetch=True and one fetch=False step.
+    t0 = time.perf_counter()
+    session = app.RenderSession(None, lights, cam, cfg, scene=scene,
+                                fast=True)
+    torch.cuda.synchronize()
+    check(session._fast, "the headline session did not take the fast path")
+    print(f"[12a] session: probe + schedule {time.perf_counter() - t0:.3f} s,"
+          f" schedule {session.schedule}; camera {session.camera.position} "
+          f"toward {session.camera.look_at()}", flush=True)
+    tr.reset_launch_counts()
+    for _ in range(SESSION_FRAMES):
+        display = session.step()
+    found = path_launches("session", HEADLINE_PATH, tr.launch_counts)
+    check(session.frames_accumulated == SESSION_FRAMES,
+          f"session: {session.frames_accumulated} frames accumulated")
+    lo, hi, mean = check_display("session", display, size)
+    print(f"[12a] {SESSION_FRAMES} frames: frames_accumulated "
+          f"{session.frames_accumulated}, display finite in [{lo}, {hi}], "
+          f"mean {mean:.6f}; launches {found}, a frame "
+          f"{ {k: v / SESSION_FRAMES for k, v in found.items()} }",
+          flush=True)
+    plan = make_render_plan(scene, lights, session.camera.config(cam), cfg)
+    runs = {"plan at the session's pose": [],
+            "session, fetch=True": [], "session, fetch=False": []}
+    meters = {k: RaysPerSecondMeter() for k in runs}
+    for _ in range(SESSION_TIMED):
+        key = rng.fold_in(key0, session._frame_index)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, stats, overflow = plan.render(key)
+        torch.cuda.synchronize()
+        steps = [time.perf_counter() - t0]
+        check(int(overflow) == 0, "session-pose plan: overflow")
+        steps.append(session_step(session, True)[0])
+        dt, display = session_step(session, False)
+        steps.append(dt)
+        for (label, ts), dt in zip(runs.items(), steps):
+            ts.append(dt)
+            meters[label].add(stats, dt)
+    check(isinstance(display, torch.Tensor) and display.is_cuda,
+          "fetch=False: the display is not a tensor on the card")
+    check_display("session, fetch=False", display, size)
+    rays = int(stats.sum())
+    for label, ts in runs.items():
+        mean = sum(ts) / len(ts)
+        print(f"[12a] {label}: {mean * 1e3:.3f} ms a frame (mean of "
+              f"{len(ts)}, median {sorted(ts)[len(ts) // 2] * 1e3:.3f} ms; "
+              f"{1.0 / mean:.3f} fps), {meters[label].mrays_per_s:.4f} "
+              f"Mrays/s (RaysPerSecondMeter, the plan's stats: {rays} rays "
+              f"a frame)  [{card}]", flush=True)
+    print(f"[12a] times (s): " + "; ".join(
+        f"{label} {[round(t, 6) for t in ts]}" for label, ts in runs.items()),
+        flush=True)
+    if profile:
+        profile_frame(lambda: session.step(fetch=False),
+                      "headline session step (fetch=False)",
+                      sum(runs["session, fetch=False"]) / SESSION_TIMED,
+                      profile)
+
+    # (b) A move clears the accumulation; the next frame's sample is the
+    # frame of a plan built at the moved pose from the same folded key.
+    session.move(forward=0.5)
+    check(session.frames_accumulated == 0 and not bool(session._accum.any()),
+          "move: the accumulation was not cleared")
+    index = session._frame_index
+    session.step(fetch=False)
+    moved = make_render_plan(scene, lights, session.camera.config(cam), cfg)
+    img, stats, overflow = moved.render(rng.fold_in(key0, index))
+    check(int(overflow) == 0, "moved plan: overflow")
+    share, err = image_agreement(session._accum, img)
+    check(torch.equal(session._accum, img),
+          f"the moved session frame differs from the plan's frame at that "
+          f"pose: max |err| {err}, {100 * share:.4f}% of pixels within "
+          f"rtol 1e-4 / atol 1e-5")
+    print(f"[12b] move(forward=0.5): frames_accumulated 0, then frame "
+          f"{index} at {session.camera.position} equals make_render_plan at "
+          f"camera.config(cam) on fold_in(key(0), {index}) bit for bit "
+          f"(session schedule {session.schedule}, plan schedule "
+          f"{moved.schedule})  [{card}]", flush=True)
+
+    # (c) The overflow path: a session probed facing away from the sphere
+    # (all sky: the minimum schedule), then turned to face it.
+    away = CameraConfig(width=size, height=size, **OVERFLOW_CAMERA)
+    turned = app.RenderSession(None, lights, away, cfg, scene=scene,
+                               fast=True)
+    least = turned.schedule
+    check(least == (n,) + (GRANULE,) * 3,
+          f"facing away: schedule {least}, not the minimum")
+    turned.rotate(180.0, 0.0)
+    calls = []
+    real = app.trace_image_compact
+
+    def spy(*args, **kw):
+        calls.append(args[5])
+        return real(*args, **kw)
+
+    app.trace_image_compact = spy
+    try:
+        turned.step(fetch=False)
+        first = turned._accum.clone()
+        retraced = list(calls)
+        calls.clear()
+        turned.step(fetch=False)
+        after = list(calls)
+    finally:
+        app.trace_image_compact = real
+    full = (n,) * 4
+    check(retraced == [least, full], f"turned frame: schedules {retraced}, "
+                                     f"not one overflow and a full retrace")
+    check(turned.schedule == full and after == [full],
+          f"the widened schedule did not stay: {turned.schedule}, {after}")
+    want, stats, overflow = real(
+        turned._hit_fns, lights, away, turned._fast_cfg,
+        KeyStream(rng.fold_in(key0, 0), n), full,
+        origin=turned.camera.position, look_at=turned.camera.look_at(),
+        return_stats=True)
+    check(int(overflow) == 0 and torch.equal(first, want),
+          f"the retraced frame differs from the full-width frame at its pose"
+          f" (max |err| {float((first - want).abs().max())})")
+    print(f"[12c] overflow: probed facing away from {away.origin}, schedule "
+          f"{least}; after rotate(180, 0) the next frame overflowed (alive "
+          f"{stats[:, 0].tolist()}), was traced again at {full}, equals the "
+          f"full-width frame at that pose bit for bit, and the schedule "
+          f"stayed {turned.schedule}  [{card}]", flush=True)
+    del turned, first, want
+
+    # (d) Every kernel launch of one session frame replayed through its
+    # plain version (outputs equal) and timed beside its bound.
+    launched = replay_frame("12d", lambda: session.step(fetch=False), cases)
+    check(launched == set(HEADLINE_PATH),
+          f"the replayed session frame launched {sorted(launched)}")
+
+    # (e) The card against the CPU: a session on the phase-11 parity mesh
+    # (3 superclusters: the scan over the walk) and one on a mesh of 10
+    # (the fast path), 2 frames, a move and 1 frame on both devices.
+    cpu = torch.device("cpu")
+    for rows_cols in (PARITY11_SPHERE, SESSION_PARITY_SPHERE):
+        got = {}
+        for d_ in (dev, cpu):
+            sc, _ = build_scene(d_, *rows_cols)
+            s = app.RenderSession(
+                None, model_scene_lights(d_),
+                CameraConfig(width=PARITY12_SIZE, height=PARITY12_SIZE,
+                             **HEADLINE_CAMERA), cfg, scene=sc, fast=True)
+            s.run(2)
+            s.move(forward=0.5, strafe=0.25)
+            s.step()
+            got[d_.type] = (s._fast, s.schedule, s._accum.cpu())
+        (fast_d, sched_d, acc_d), (fast_c, sched_c, acc_c) = \
+            got[dev.type], got["cpu"]
+        check(fast_d == fast_c and sched_d == sched_c,
+              f"uv_sphere{rows_cols}: card and CPU sessions differ in route "
+              f"or schedule ({fast_d}, {sched_d}; {fast_c}, {sched_c})")
+        share, err = image_agreement(acc_d, acc_c)
+        check(share >= 0.995, f"uv_sphere{rows_cols} session: "
+                              f"{100 * share:.3f}% of pixels within rtol "
+                              f"1e-4 / atol 1e-5 of the CPU run")
+        print(f"[12e] uv_sphere{rows_cols} session "
+              f"({'fast path' if fast_d else 'scan'}), {PARITY12_SIZE}x"
+              f"{PARITY12_SIZE}, 3 frames and a move: card vs CPU max |err| "
+              f"{err}, {100 * (1 - share):.4f}% of pixels differ beyond "
+              f"rtol 1e-4 / atol 1e-5  [{card}]", flush=True)
+
+    # (f) Validation: every second frame of a headline session; an
+    # injected NaN texel is healed.
+    checked = app.RenderSession(None, lights, cam, cfg, scene=scene,
+                                fast=True, validate_every=2)
+    checked.run(2)
+    report = checked.metrics["last_report"]
+    check(report is not None and report.ok, f"validation: {report}")
+    checked._accum[5, 7, 1] = float("nan")
+    checked.run(2)
+    healed = checked.metrics["healed_texels"]
+    check(healed == 1 and bool(torch.isfinite(checked._accum).all()),
+          f"validation: {healed} texels healed, "
+          f"{checked.metrics['last_report']}")
+    print(f"[12f] validate_every=2: frame 2 {report}; a NaN texel injected "
+          f"before frame 3 is healed at frame 4 (healed_texels {healed})  "
+          f"[{card}]", flush=True)
+    del checked
+
+    # (g) config10b's trainer with a checkpoint: CONFIG10B_STEPS steps
+    # twice straight, and half of them plus a resume to the end; the
+    # resumed parameters may differ from the straight run's by no more
+    # than the two straight runs differ.
+    cam6 = CameraConfig(width=CONFIG6_SIZE, height=CONFIG6_SIZE,
+                        **HEADLINE_CAMERA)
+    cfg6 = RenderConfig(max_depth=2, rr_bounces=0, spp=1, sort_bounces=True)
+    image6, _ = mesh_loss(scene, lights, cam6, cfg6)
+    with torch.no_grad():
+        target = image6((scene.mat_diffuse, scene.positions),
+                        rng.key(3, dev))
+    params0 = (scene.mat_diffuse * 0.9, scene.positions * 1.001)
+
+    def train(steps, path=None):
+        return optim.run_inverse_rendering(
+            image6, params0, target, rng.key(3, dev), steps=steps,
+            learning_rate=1e-3, fixed_noise=True, log_every=0,
+            checkpoint_path=path, checkpoint_every=1)
+
+    half = CONFIG10B_STEPS // 2
+    straight = [train(CONFIG10B_STEPS) for _ in range(2)]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "config10b.npz")
+        first = train(half, path)
+        resumed = train(CONFIG10B_STEPS, path)
+    check(len(first.losses) == half
+          and len(resumed.losses) == CONFIG10B_STEPS - half,
+          f"checkpoint resume ran {len(first.losses)} + "
+          f"{len(resumed.losses)} steps")
+    spread = rel_err(straight[1].params, straight[0].params)
+    off = rel_err(resumed.params, straight[0].params)
+    check(off <= spread, f"the resumed parameters differ from the straight "
+                         f"run's by {off:.3e} (L2, relative), two straight "
+                         f"runs by {spread:.3e}")
+    print(f"[12g] config10b checkpoint: {half} steps, then a resume to "
+          f"{CONFIG10B_STEPS}: losses {first.losses} + {resumed.losses}, "
+          f"straight {straight[0].losses}; parameters differ from the "
+          f"straight run's by {off:.3e}, two straight runs by {spread:.3e} "
+          f"(L2, relative)  [{card}]", flush=True)
+    print(f"[12] app phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="PATH")
@@ -2452,6 +2767,7 @@ def main(argv=None) -> int:
     phase_scan(scene, cases, args.profile, dev)
     phase_grad(scene, cases, args.profile, dev)
     phase_textures_nee(scene, cases, args.profile, dev)
+    phase_app(scene, cases, args.profile, dev)
 
     # Each kernel's first case, or its LINE_CASES case: device ms, plain ms
     # and bound of one call.  No single PyTorch call computes a cull, a
@@ -2469,7 +2785,7 @@ def main(argv=None) -> int:
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
             library_ms=None))
-    print(f"[12] all phases passed in {time.perf_counter() - t_start:.1f} s",
+    print(f"[13] all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

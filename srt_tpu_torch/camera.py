@@ -1,12 +1,13 @@
-"""Camera: viewport derivation and batched primary rays (counterpart of
-``srt_tpu/camera.py``; reference ``GetCamera``/``GetRay``,
-raytrace_compute.glsl:47-90).  All arithmetic is float32, in the JAX
-package's operation order."""
+"""Camera: viewport derivation, batched primary rays and the interactive
+session's ``FPSCamera`` (counterpart of ``srt_tpu/camera.py``; reference
+``GetCamera``/``GetRay``, raytrace_compute.glsl:47-90).  All tensor
+arithmetic is float32, in the JAX package's operation order."""
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Tuple
 
 import torch
 
@@ -115,3 +116,69 @@ def generate_rays(vp: Viewport, width: int, height: int,
             + (r * torch.cos(theta))[None, :] * vp.defocus_u[:, None] \
             + (r * torch.sin(theta))[None, :] * vp.defocus_v[:, None]
     return origins, px - origins
+
+
+# ---------------------------------------------------------------------------
+# FPS-style camera state (host-side analog of Camera/InputHandler:
+# src/raytracer/camera.cpp:138-212, src/input_handler.cpp:30-138).
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class FPSCamera:
+    """Mutable yaw/pitch camera of the interactive session (``app.py``),
+    plain ``math`` on Python tuples, as the JAX package's.
+
+    Yaw -90 looks down -z; pitch is clamped to +/-89 degrees
+    (camera.cpp:106-117); the basis is recomputed from a fixed world up,
+    so it does not drift (camera.cpp:173-184)."""
+
+    position: Tuple[float, float, float] = (0.0, 1.0, 4.0)
+    yaw: float = -90.0
+    pitch: float = 0.0
+
+    def basis(self):
+        cy, sy = (math.cos(math.radians(self.yaw)),
+                  math.sin(math.radians(self.yaw)))
+        cp, sp = (math.cos(math.radians(self.pitch)),
+                  math.sin(math.radians(self.pitch)))
+        front = (cy * cp, sp, sy * cp)
+        n = math.sqrt(sum(c * c for c in front))
+        front = tuple(c / n for c in front)
+        right = (
+            front[1] * 0.0 - front[2] * 1.0,
+            front[2] * 0.0 - front[0] * 0.0,
+            front[0] * 1.0 - front[1] * 0.0,
+        )
+        rn = math.sqrt(sum(c * c for c in right)) or 1.0
+        right = tuple(c / rn for c in right)
+        up = (
+            right[1] * front[2] - right[2] * front[1],
+            right[2] * front[0] - right[0] * front[2],
+            right[0] * front[1] - right[1] * front[0],
+        )
+        return front, right, up
+
+    def move(self, forward=0.0, strafe=0.0, vertical=0.0):
+        """WASD/Space/Shift movement (input_handler.cpp:30-78)."""
+        front, right, up = self.basis()
+        self.position = tuple(
+            p + forward * f + strafe * r + vertical * u
+            for p, f, r, u in zip(self.position, front, right, up))
+
+    def rotate(self, yaw_offset: float, pitch_offset: float):
+        """Mouse-drag rotation with the pitch clamp (camera.cpp:106-117)."""
+        self.yaw += yaw_offset
+        self.pitch = max(-89.0, min(89.0, self.pitch + pitch_offset))
+
+    def reset(self, show_model: bool = False):
+        """Per-scene default pose (camera.cpp:187-212)."""
+        self.position = (0.0, 9.0, 40.0) if show_model else (0.0, 1.0, 4.0)
+        self.yaw, self.pitch = -90.0, 0.0
+
+    def look_at(self) -> Tuple[float, float, float]:
+        front, _, _ = self.basis()
+        return tuple(p + f for p, f in zip(self.position, front))
+
+    def config(self, base: CameraConfig) -> CameraConfig:
+        return dataclasses.replace(base, origin=tuple(self.position),
+                                   look_at=self.look_at())

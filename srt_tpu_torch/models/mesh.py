@@ -42,7 +42,8 @@ from srt_tpu_torch.ops.safemath import maximum
 from srt_tpu_torch.ops.texture import sample_atlas
 from srt_tpu_torch.scene import Materials
 from srt_tpu_torch.utils.atlas import build_quad_table
-from srt_tpu_torch.utils.flatten import FlatScene
+from srt_tpu_torch.utils.flatten import FlatScene, flatten_models
+from srt_tpu_torch.utils.obj_loader import load_object
 
 MISS = -1
 # ``TriangleToSupportedMat`` constants (raytrace_utils.glsl:169-173).
@@ -570,3 +571,13 @@ def mesh_hit_fn(scene: MeshScene, method: str = "walk",
             for a in range(0, n, ray_tile)])
 
     return hit_tiled
+
+
+def load_mesh_scene(obj_paths, frames=None, method_pad: int = 1,
+                    leaf_size: int = 2, device=None) -> MeshScene:
+    """OBJ paths -> flattened MeshScene on ``device`` (None: the card,
+    ``devices.resolve``)."""
+    meshes = [load_object(p) for p in obj_paths]
+    flat = flatten_models(meshes, frames=frames, leaf_size=leaf_size,
+                          pad_to=method_pad)
+    return upload(flat, device)

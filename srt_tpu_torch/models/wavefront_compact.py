@@ -105,21 +105,24 @@ def trace_compact(closest_hit, lights: Lights, origins, dirs, stream,
 
 def trace_image_compact(closest_hit, lights: Lights, cam: CameraConfig,
                         cfg: RenderConfig, stream, schedule: Sequence[int],
-                        return_stats: bool = False, emitters=None):
+                        origin=None, look_at=None, return_stats: bool = False,
+                        emitters=None):
     """One full image via the compacted trace; linear [H, W, 3].
 
     ``cfg.spp`` samples per pixel are traced in one wavefront, a pixel's
     samples adjacent (sample id = pixel * spp + s); the image is their
     mean.  The stream must cover ``spp * W * H`` rays and
-    ``schedule[0]`` must equal that total.  With ``cfg.ray_cones`` and
-    no ``primary_spread``, the spread is one pixel's footprint;
-    ``emitters`` as in ``trace_compact``."""
+    ``schedule[0]`` must equal that total.  ``origin`` / ``look_at``
+    override the camera's pose (``derive_viewport``).  With
+    ``cfg.ray_cones`` and no ``primary_spread``, the spread is one pixel's
+    footprint; ``emitters`` as in ``trace_compact``."""
     cfg = pathtracer.with_primary_spread(cfg, cam)
     k = cfg.spp
     n_pix = cam.width * cam.height
     jitter = stream.take(2)                                   # [2, K*N]
     defocus = stream.take(2) if cam.defocus_angle > 0 else None
-    vp = derive_viewport(cam, device=jitter.device)
+    vp = derive_viewport(cam, origin=origin, look_at=look_at,
+                         device=jitter.device)
     origins, dirs = generate_rays(vp, cam.width, cam.height, jitter, defocus)
     pix_init = None
     if cfg.morton_order:

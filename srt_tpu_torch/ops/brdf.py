@@ -1,6 +1,7 @@
 """GGX microfacet BRDF, batched over ray wavefronts (counterpart of
-``srt_tpu/ops/brdf.py``): only what ``pathtracer.bounce_step`` calls,
-``eval_lobes_pdf`` (next-event estimation) among it.
+``srt_tpu/ops/brdf.py``): what ``pathtracer.bounce_step`` calls,
+``eval_lobes_pdf`` (next-event estimation) among it, and the reference's
+legacy sampler set (the ``legacy_*`` tail).
 
 Cook-Torrance GGX with Smith height-correlated masking, Schlick Fresnel,
 cosine-weighted diffuse + GGX half-vector sampling, RIS over point lights
@@ -84,6 +85,14 @@ def ggx_ndf_legacy(n_dot_h, roughness):
 
 def schlick_fresnel_legacy(f0, u):
     return f0 + (1.0 - f0) * torch.pow(maximum(1.0 - bc(u), 0.001), 5.0)
+
+
+def probability_to_sample_diffuse(diff_brdf, spec_brdf):
+    """Luminance-ratio lobe probability (``probabilityToSampleDiffuse``,
+    raytrace_utils.glsl:115-119; the reference's legacy sampler)."""
+    lum_d = maximum(luminance(diff_brdf), 0.01)
+    lum_s = maximum(luminance(spec_brdf), 0.01)
+    return lum_d / (lum_d + lum_s)
 
 
 def perpendicular_vector(u):
@@ -365,3 +374,82 @@ def sample_lights_ris(p, lights: Lights, u_idx, u_sel):
 
     weight = (total / num_lights) / maximum(sel_pdf, 0.001)
     return selected, sel_idx, weight
+
+
+# ---------------------------------------------------------------------------
+# Legacy sampler set (brdf.glsl:290-386): the reference's older,
+# partly-used BRDF/PDF set beside the "New" path, kept for inventory
+# parity with the JAX package: uniform draws are explicit arguments, and
+# the half-vector is passed in where the reference draws a fresh random
+# one inside an evaluator (SpecularPDF/SpecularBRDF, brdf.glsl:326/341).
+# ---------------------------------------------------------------------------
+
+def legacy_diffuse_pdf(normal, light_dir):
+    """``DiffusePDF`` (brdf.glsl:320-322): cosine-hemisphere pdf."""
+    return maximum(dot(normal, light_dir), 0.0) / PI
+
+
+def legacy_specular_pdf(normal, half_vec, light_dir, roughness):
+    """``SpecularPDF`` (brdf.glsl:324-334) with the half-vector passed in:
+    the GGX NDF pdf moved to the light direction, D*NdotH / (4*LdotH)."""
+    l_dot_h = saturate(dot(light_dir, half_vec))
+    n_dot_h = saturate(dot(normal, half_vec))
+    d = ggx_ndf_legacy(n_dot_h, roughness)
+    return d * n_dot_h / maximum(4.0 * l_dot_h, 1e-4)
+
+
+def legacy_diffuse_brdf(mat: Materials):
+    """``DiffuseBRDF`` (brdf.glsl:336-338): albedo / pi."""
+    return mat.albedo / PI
+
+
+def legacy_specular_brdf(normal, view_dir, light_dir, mat: Materials):
+    """``SpecularBRDF`` (brdf.glsl:340-358) with H = normalize(V + L):
+    legacy D * Schlick-G * F / (4 NdotV NdotL)."""
+    h = vec.normalize(view_dir + light_dir)
+    n_dot_l = saturate(dot(normal, light_dir))
+    n_dot_h = saturate(dot(normal, h))
+    l_dot_h = saturate(dot(light_dir, h))
+    n_dot_v = saturate(dot(normal, view_dir))
+    d = ggx_ndf_legacy(n_dot_h, mat.roughness)
+    g = ggx_schlick_masking(n_dot_l, n_dot_v, mat.roughness)
+    f = schlick_fresnel_legacy(mat.specular, l_dot_h)
+    denom = 4.0 * maximum(n_dot_v, 0.001) * maximum(n_dot_l, 0.001)
+    return f * bc(d * g / maximum(denom, 0.001))
+
+
+def legacy_brdf(normal, in_dir, out_dir, mat: Materials, is_diffuse):
+    """``BRDF`` (brdf.glsl:360-386): per-lobe evaluator, cosine-weighted
+    Lambertian for the diffuse lobe, D*G*F/(4 NdotV) for the specular
+    lobe (the reference comments out the NdotL factor; matched)."""
+    data = brdf_data(normal, out_dir, -in_dir, mat)
+    d = ggx_ndf_legacy(data.n_dot_h, mat.roughness)
+    g = ggx_schlick_masking(data.n_dot_l, data.n_dot_v, mat.roughness)
+    f = schlick_fresnel_legacy(specular_f0(mat.albedo, mat.metalness),
+                               data.l_dot_h)
+    ggx_term = f * bc(d * g / maximum(4.0 * data.n_dot_v, 0.001))
+    diffuse_term = mat.albedo * bc(data.n_dot_l / PI)
+    return torch.where(bc(is_diffuse), diffuse_term, ggx_term)
+
+
+def legacy_sample_next_ray(p, normal, in_dir, mat: Materials,
+                           u_lobe, u1, u2):
+    """``SampleNextRay`` (brdf.glsl:290-318): luminance-ratio lobe choice,
+    cosine diffuse or GGX half-vector specular bounce, with the matching
+    pdf.  Returns (direction [3, N], pdf [N], is_diffuse [N] bool);
+    uniforms u_lobe, u1, u2 [N]."""
+    diff_prob = probability_to_sample_diffuse(
+        legacy_diffuse_brdf(mat),
+        legacy_specular_brdf(normal, -in_dir, reflect(in_dir, normal), mat),
+    )
+    is_diffuse = u_lobe < diff_prob
+
+    l_diff = sample_diffuse(normal, u1, u2)
+    half = sample_ggx_half_vector(normal, mat.roughness, u1, u2)
+    l_spec = reflect(in_dir, half)
+
+    direction = torch.where(bc(is_diffuse), l_diff, l_spec)
+    pdf_diff = legacy_diffuse_pdf(normal, l_diff)
+    pdf_spec = legacy_specular_pdf(normal, half, l_spec, mat.roughness)
+    pdf = torch.where(is_diffuse, pdf_diff, pdf_spec)
+    return direction, pdf, is_diffuse

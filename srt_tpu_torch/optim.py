@@ -11,9 +11,8 @@ leaves are tensors; other values (ints, tuples of ints, None) are static.
 ``float_partition`` splits out the floating-point leaves, so bool and
 int tensors are never trained.  Leaf paths are spelled as JAX's
 ``keystr`` spells them: ``".materials.albedo"``, ``"[1]"``, ``"['a']"``.
-
-Checkpointing (``checkpoint_path``) belongs to the app layer and is not
-ported yet (ROADMAP.md queue A, item 7).
+``run_inverse_rendering(checkpoint_path=...)`` saves and resumes the
+trained leaves and the optimizer state (``utils/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -161,10 +160,11 @@ def run_inverse_rendering(
     trainable: Optional[Callable] = None,
     fixed_noise: bool = False,
     checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 50,
     log_every: int = 25,
     callback: Optional[Callable] = None,
 ) -> InverseRenderResult:
-    """The optimization loop.
+    """The optimization loop, with optional checkpoint/resume.
 
     ``render_fn(params, key) -> image``; the loss defaults to the image
     MSE against ``target``.  ``optimizer(float_leaves) ->
@@ -178,11 +178,16 @@ def run_inverse_rendering(
     spp when the target was rendered with the same key); False uses
     ``rng.fold_in(key, i)`` at step i.  ``callback(i, params, loss)`` runs
     after each step; ``log_every`` prints the loss every that many
-    steps (0: never)."""
-    if checkpoint_path is not None:
-        raise NotImplementedError(
-            "checkpointing belongs to the app layer (utils/checkpoint.py), "
-            "not ported yet: ROADMAP.md queue A, item 7")
+    steps (0: never).
+
+    ``checkpoint_path``: a checkpoint there is resumed from its step (the
+    trained leaves and the optimizer state restored exactly, so the run
+    goes on as an uninterrupted one would); the state is saved there
+    every ``checkpoint_every`` steps and at the end.  ``losses`` holds
+    the steps this call ran."""
+    # Imported here: utils/checkpoint imports this module's tree walk.
+    from srt_tpu_torch.utils import checkpoint as ckpt
+
     make_optimizer = optimizer or _adam(learning_rate)
     if loss_fn is None:
         def loss_fn(params, target, key):  # noqa: F811
@@ -192,11 +197,22 @@ def run_inverse_rendering(
     float_leaves, merge = float_partition(init_params, trainable)
     float_leaves = [x.detach().clone().requires_grad_(True)
                     for x in float_leaves]
-    step_fn = make_train_step(loss_fn, make_optimizer(float_leaves), merge,
-                              project_fn, trainable)
+    optimizer = make_optimizer(float_leaves)
+    start_step = 0
+    if checkpoint_path is not None:
+        restored = ckpt.load(checkpoint_path)
+        if restored is not None:
+            saved, opt_state, start_step = ckpt.restore_train_state(
+                restored, float_leaves, optimizer.state_dict())
+            with torch.no_grad():
+                for leaf, x in zip(float_leaves, saved):
+                    leaf.copy_(x)
+            optimizer.load_state_dict(opt_state)
+    step_fn = make_train_step(loss_fn, optimizer, merge, project_fn,
+                              trainable)
 
     losses = []
-    for i in range(steps):
+    for i in range(start_step, steps):
         step_key = key if fixed_noise else rng.fold_in(key, i)
         float_leaves, loss = step_fn(float_leaves, target, step_key)
         losses.append(float(loss))
@@ -204,7 +220,13 @@ def run_inverse_rendering(
             print(f"[inverse-render] step {i}: loss {losses[-1]:.4e}")
         if callback is not None:
             callback(i, merge(float_leaves), losses[-1])
+        if checkpoint_path is not None and (i + 1) % checkpoint_every == 0:
+            ckpt.save_train_state(checkpoint_path, float_leaves,
+                                  optimizer.state_dict(), i + 1)
 
+    if checkpoint_path is not None:
+        ckpt.save_train_state(checkpoint_path, float_leaves,
+                              optimizer.state_dict(), steps)
     return InverseRenderResult(
         params=merge([x.detach() for x in float_leaves]), losses=losses,
         steps=steps)

@@ -226,3 +226,12 @@ def flatten_models(
         num_triangles=tri_off,
         max_depth=depth,
     )
+
+
+def set_frame(scene: FlatScene, model_index: int,
+              matrix: np.ndarray) -> FlatScene:
+    """Replace one model's world->model matrix (``UpdateModelMatrix``,
+    gpu_loader.cpp:185-196).  Returns a new FlatScene (host arrays)."""
+    frames = scene.frames.copy()
+    frames[model_index] = np.asarray(matrix, np.float32)
+    return dataclasses.replace(scene, frames=frames)

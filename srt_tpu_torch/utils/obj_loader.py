@@ -1,9 +1,10 @@
 """Wavefront OBJ/MTL host types and the pure-Python parsers (numpy).
 
 Counterpart of ``srt_tpu/utils/obj_loader.py``: ``MaterialDef``,
-``MeshData``, ``parse_obj`` and ``parse_mtl`` carried over unchanged in
-behaviour (reference ``model_loader.cpp``).  The native C++ parser path
-and ``load_object`` are not part of the port yet.
+``MeshData``, ``parse_obj``, ``parse_mtl``, ``compute_vertex_normals``
+and ``load_object`` carried over unchanged in behaviour (reference
+``model_loader.cpp``).  The native C++ parser (``native/srt_native.cpp``)
+is not carried over: it drops ``vn`` and ``Ke``.
 """
 
 from __future__ import annotations
@@ -173,3 +174,84 @@ def parse_mtl(path: str, materials: Dict[str, MaterialDef]) -> None:
             elif prefix == "Ke" and len(parts) >= 4:
                 current.emissive = (float(parts[1]), float(parts[2]),
                                     float(parts[3]))
+
+
+def compute_vertex_normals(mesh: MeshData) -> MeshData:
+    """Area-weighted smooth vertex normals for a mesh without ``vn``.
+
+    Corners are duplicated per face (model_loader.cpp:296-331 layout), so
+    coincident positions are re-identified by exact coordinate match and
+    face normals (cross product, area-weighted) are accumulated over each
+    shared position.  Returns a new MeshData with ``normals`` set."""
+    p = mesh.positions
+    vidx = mesh.tri_vidx.astype(np.int64)
+    fn = np.cross(p[vidx[:, 1]] - p[vidx[:, 0]],
+                  p[vidx[:, 2]] - p[vidx[:, 0]])        # area-weighted
+    _, group = np.unique(np.asarray(p, np.float32), axis=0,
+                         return_inverse=True)
+    group = group.ravel()
+    acc = np.zeros((group.max() + 1, 3), np.float64)
+    for c in range(3):
+        np.add.at(acc, group[vidx[:, c]], fn)
+    n = acc[group]
+    ln = np.linalg.norm(n, axis=1, keepdims=True)
+    n = np.where(ln > 1e-12, n / np.maximum(ln, 1e-12), 0.0)
+    return dataclasses.replace(mesh, normals=n.astype(np.float32))
+
+
+def load_object(obj_path: str, use_native: str = "auto") -> MeshData:
+    """Load an OBJ and its MTL libraries into a packed MeshData
+    (``AssetUtils::LoadObject``, model_loader.cpp:20-32, and
+    ``ConvertCPUGeometryToModel``, :280-365): vertices duplicated per face
+    corner (positions and uvs packed), each triangle recording (v0, v1,
+    v2, material).
+
+    ``use_native`` keeps the JAX package's values ("auto", "never"); both
+    take this Python parser, since the native one is not carried over."""
+    vertices, texcoords, normals_in, sub_geos, mtl_files = parse_obj(obj_path)
+
+    folder = os.path.dirname(obj_path)
+    materials: Dict[str, MaterialDef] = {}
+    for mtl in mtl_files:
+        parse_mtl(os.path.join(folder, mtl), materials)
+
+    mat_names = list(materials.keys())
+    mat_index = {n: i for i, n in enumerate(mat_names)}
+    mat_list = [materials[n] for n in mat_names]
+    if not mat_list:
+        mat_list = [MaterialDef()]
+
+    positions: List[np.ndarray] = []
+    uvs: List[Tuple[float, float]] = []
+    nrm: List[Tuple[float, float, float]] = []
+    tri_vidx: List[Tuple[int, int, int]] = []
+    tri_mat: List[int] = []
+    any_vn = False
+
+    for mat_name, faces in sub_geos:
+        midx = mat_index.get(mat_name, 0)
+        for face in faces:
+            corner_ids = []
+            for (v, vt, vn) in face:
+                corner_ids.append(len(positions))
+                positions.append(vertices[v])
+                uvs.append(tuple(texcoords[vt]) if vt is not None
+                           else (0.0, 0.0))
+                if vn is not None:
+                    nrm.append(tuple(normals_in[vn]))
+                    any_vn = True
+                else:
+                    nrm.append((0.0, 0.0, 0.0))
+            tri_vidx.append(tuple(corner_ids))
+            tri_mat.append(midx)
+
+    return MeshData(
+        positions=np.asarray(positions, np.float32).reshape(-1, 3),
+        uvs=np.asarray(uvs, np.float32).reshape(-1, 2),
+        tri_vidx=np.asarray(tri_vidx, np.uint32).reshape(-1, 3),
+        tri_mat=np.asarray(tri_mat, np.uint32),
+        materials=mat_list,
+        name=os.path.splitext(os.path.basename(obj_path))[0],
+        normals=(np.asarray(nrm, np.float32).reshape(-1, 3)
+                 if any_vn else None),
+    )

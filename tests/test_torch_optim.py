@@ -167,11 +167,11 @@ def test_run_inverse_rendering_follows_jax():
     assert torch.equal(got.params.center, start.center)
 
 
-def test_run_inverse_rendering_keys_and_logging(capsys):
+def test_run_inverse_rendering_keys_and_logging(capsys, tmp_path):
     """``fixed_noise=False`` renders step i with ``rng.fold_in(key, i)``,
-    ``fixed_noise=True`` with ``key``; ``log_every`` prints; a checkpoint
-    path raises (the app layer is not ported); a caller's loss and
-    optimizer replace the MSE and Adam."""
+    ``fixed_noise=True`` with ``key``; ``log_every`` prints; a run
+    resumed from a checkpoint path renders its remaining steps with their
+    own keys; a caller's loss and optimizer replace the MSE and Adam."""
     key = rng.key(5, "cpu")
     seen = []
 
@@ -193,9 +193,15 @@ def test_run_inverse_rendering_keys_and_logging(capsys):
     optim.run_inverse_rendering(render_fn, params, torch.zeros(4), key,
                                 steps=2, log_every=0, fixed_noise=True)
     assert all(torch.equal(k, key) for k in seen)
-    with pytest.raises(NotImplementedError, match="queue A"):
-        optim.run_inverse_rendering(render_fn, params, torch.zeros(4), key,
-                                    checkpoint_path="ckpt.npz")
+    path = str(tmp_path / "ckpt.npz")
+    optim.run_inverse_rendering(render_fn, params, torch.zeros(4), key,
+                                steps=2, log_every=0, checkpoint_path=path)
+    seen.clear()
+    res = optim.run_inverse_rendering(render_fn, params, torch.zeros(4), key,
+                                      steps=3, log_every=0,
+                                      checkpoint_path=path)
+    assert len(seen) == 1 and torch.equal(seen[0], rng.fold_in(key, 2))
+    assert len(res.losses) == 1 and res.steps == 3
     # A loss and an optimizer of the caller's: one SGD step of 0.25 on
     # sum(2p) moves each entry by 0.5.
     res = optim.run_inverse_rendering(

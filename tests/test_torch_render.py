@@ -225,8 +225,9 @@ def test_walk_parsing_and_validation(port_scene):
 
 def test_port_imports_no_jax():
     """Every port module, the trainer (``optim``), the atlas host code,
-    texture sampling and the emitter tables among them, imports without
-    JAX, optax or the JAX package."""
+    texture sampling, the emitter tables and the app layer (``app``,
+    checkpoints, tonemapping, validation, profiling, image files) among
+    them, imports without JAX, optax or the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import srt_tpu_torch\n"
@@ -234,9 +235,11 @@ def test_port_imports_no_jax():
         "    srt_tpu_torch.__path__, 'srt_tpu_torch.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "assert len(mods) >= 24, mods\n"
+        "assert len(mods) >= 35, mods\n"
         "for m in ('optim', 'utils.atlas', 'ops.texture',\n"
-        "          'models.emitters'):\n"
+        "          'models.emitters', 'app', 'utils.checkpoint',\n"
+        "          'ops.tonemap', 'utils.validate', 'utils.profiling',\n"
+        "          'utils.image'):\n"
         "    assert 'srt_tpu_torch.' + m in mods, mods\n"
         "bad = [m for m in sys.modules\n"
         "       if m in ('jax', 'optax', 'srt_tpu')\n"
