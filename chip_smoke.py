@@ -162,11 +162,40 @@ Phases, one line each; the last line is printed only when all pass:
    resume to 6; the resumed parameters differ from the straight run's by
    no more than the two straight runs differ.  The phase prints its
    seconds.
+13. Edge-aware gradients (``bench_suite.py``'s config10a).  (a) config10a:
+   ``rubik_grid()`` flattened with ``pad_to=128`` (one supercluster),
+   256x256 from (0, 20, 20) toward (0, 1, -1), 2 bounces,
+   ``render_edge_aware_mesh(method="walk", search="ring", rings=1)``
+   through ``with_positions``: the target from key 7, one forward whose
+   every kernel launch is replayed through its plain version and timed
+   beside its bound, the forward and the
+   forward + backward (median of 3 after a warm call), then 6 fixed-noise
+   Adam steps at 2e-3 from positions x 1.002 through
+   ``optim.run_inverse_rendering``: s/step (mean of steps 1-5), finite
+   losses with min <= first, launches a step (B2 and threefry, no B1),
+   peak memory.  (b) One ``trace_edge_aware_mesh`` frame of the headline
+   mesh (50 superclusters) at 256x256, walk, ring search, whose every
+   kernel launch is replayed through its plain version and timed beside
+   its bound: B1, B2 and threefry.  (c) config10a at 32x32 on the card
+   and on the CPU: equal primary winners, the image criterion of 9a, and
+   the gradients of the image mean over the agreeing pixels within the
+   CPU tests' tolerance (rtol 1e-4, atol 1e-4 x max), per welded vertex
+   (rows at equal coordinates summed: where two edges are equally near,
+   an ulp decides whose corner rows take the gradient).  (d)
+   ``uv_sphere(64, 104)`` with vertex normals (13,312 triangles,
+   ``pad_to=128``), 64x64, 1 bounce, ``search="global"``,
+   ``soft_shadow_band=0.1``: one forward and one forward + backward after
+   a warm call, peak memory; card vs CPU at 28x24 as (c).  (e) The sphere
+   route: ``trace_edge_aware`` and ``trace_edge_aware_reflection`` of the
+   default sphere scene at 256x256 (median of 3), and card vs CPU at
+   32x32 as (c) (gradients w.r.t. centres and radii).  The phase prints
+   its seconds.
 
 Each path (the headline frames, the config8 frames, the counter run, the
 binned frames, the pg frames, the scan frames of phase 9, the backward
 passes and the optimizer steps of phase 10, the config9, textured-plan
-and config11 frames of phase 11, the session frames of phase 12) is
+and config11 frames of phase 11, the session frames of phase 12,
+config10a's optimizer steps and the global-search frames of phase 13) is
 driven with
 the launch counts set to 0 just before it and read just after; every
 kernel must be launched by its path.  Each replayed B4/B4s launch also prints its groups, the clusters
@@ -193,8 +222,9 @@ one call.
 frame of each render (headline, config8, binned, pg, and phase 9's
 config2, config6 and config3, phase 11's config9, textured and
 untextured plan and config11 NEE frames) and of phase 10's config6
-forward + backward, config2's and config3's, and of one step of phase
-12's headline session to PATH (the source of PERF.md section 5).
+forward + backward, config2's and config3's, of one step of phase 12's
+headline session and of phase 13's config10a forward and forward +
+backward to PATH (the source of PERF.md section 5).
 """
 
 from __future__ import annotations
@@ -289,6 +319,15 @@ CONFIG11_CAMERA = dict(origin=(0.0, 3.0, 2.5), look_at=(0.0, 0.6, 0.0))
 SESSION_FRAMES, SESSION_TIMED = 8, 10
 OVERFLOW_CAMERA = dict(origin=(0.0, 1.0, -5.0), look_at=(0.0, 1.0, -6.0))
 PARITY12_SIZE, SESSION_PARITY_SPHERE = 64, (80, 120)
+# Phase 13 (edge-aware gradients, bench_suite.py's config10a): the
+# image size and Adam steps of config10a, the multi-super walk frame's
+# size, the card-vs-CPU frames' size, the global search's sphere (rows,
+# cols) and image sizes (the card's frame, the card-vs-CPU frame), the
+# sphere route's frame size.
+CONFIG10A_SIZE, CONFIG10A_STEPS = 256, 6
+EA_WALK_SIZE, EA_PARITY_SIZE = 256, 32
+GLOBAL_SPHERE, GLOBAL_SIZE, GLOBAL_PARITY = (64, 104), 64, (28, 24)
+EA_SPHERE_SIZE = 256
 # Rays of the few-group B4/B4s cases (8 groups at G = 32), and the list
 # entries B4 stages in shared memory (LIST_SH, csrc/pgwalk2.cu).
 FEW_RAYS, LIST_STAGED = 256, 256
@@ -2697,6 +2736,282 @@ def phase_app(scene, cases, profile, dev):
           flush=True)
 
 
+def welded(grad, positions):
+    """Rows of a vertex-buffer gradient summed per welded vertex (rows of
+    ``positions`` equal to 1e-6: a ``uv_sphere`` seam repeats its vertices
+    at coordinates 1e-15 apart)."""
+    import torch
+    _, inv = torch.unique(torch.round(positions.detach().cpu() * 1e6),
+                          dim=0, return_inverse=True)
+    return torch.zeros((int(inv.max()) + 1, 3), dtype=torch.float64
+                       ).index_add_(0, inv, grad.cpu().double())
+
+
+def ea_parity(tag, label, make, dev, card, weld=False):
+    """Phase 13's card-vs-CPU gate.  ``make(d)`` returns (image(params),
+    params) on device d.  The images meet the image criterion of 9a; the
+    gradients of their mean over the pixels whose images agree meet the
+    CPU tests' tolerance (rtol 1e-4, atol 1e-4 x max |CPU|, entry by
+    entry), with ``weld`` per welded vertex: ``procgen`` meshes keep each
+    triangle's corners, and where two copies of one edge are equally near
+    (a shared edge met from both sides, a sphere's seam), an ulp decides
+    whose rows take the gradient (ROADMAP.md C)."""
+    import torch
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        image, params = make(d)
+        with torch.no_grad():
+            img = image(params)
+        runs[d.type] = (image, params, d, img.cpu())
+    img_d, img_c = runs[dev.type][3], runs["cpu"][3]
+    check(bool(torch.isfinite(img_d).all()), f"{label}: non-finite pixels")
+    share, err = image_agreement(img_d, img_c)
+    check(share >= 0.995, f"{label}: {100 * share:.3f}% of pixels within "
+                          f"rtol 1e-4 / atol 1e-5 of the CPU run")
+    stable = torch.isclose(img_d, img_c, rtol=1e-4, atol=1e-5).all(-1)
+    grads = {}
+    for name, (image, params, d, _) in runs.items():
+        w = stable.to(d, torch.float32)[:, :, None] / float(stable.sum())
+        grads[name] = grad_of(lambda p, _k: (image(p) * w).sum(), params,
+                              None)
+    worst = 0.0
+    for k, (g_d, g_c) in enumerate(zip(grads[dev.type], grads["cpu"])):
+        g_d = g_d.cpu()
+        if weld:
+            pos = runs["cpu"][1][k]
+            g_d, g_c = welded(g_d, pos), welded(g_c, pos)
+        scale = float(g_c.abs().max())
+        check(scale > 0.0 and bool(torch.isfinite(g_d).all()),
+              f"{label}: a zero or non-finite gradient")
+        worst = max(worst, float(((g_d - g_c).abs()
+                                  / (1e-4 * g_c.abs() + 1e-4 * scale)).max()))
+    check(worst <= 1.0, f"{label}: card gradients beyond rtol 1e-4 / atol "
+                        f"1e-4 x max of the CPU run's ({worst:.3f} of it)")
+    print(f"[{tag}] {label}: card vs CPU image max |err| {err}, "
+          f"{100 * (1 - share):.4f}% of pixels beyond rtol 1e-4 / atol 1e-5;"
+          f" gradients{' per welded vertex' if weld else ''} over the "
+          f"{int(stable.sum())} agreeing pixels within {worst:.4f} of rtol "
+          f"1e-4 / atol 1e-4 x max  [{card}]", flush=True)
+
+
+def phase_edge_aware(scene, cases, profile, dev):
+    """Phase 13: edge-aware gradients (``bench_suite.py``'s config10a,
+    the walk on a multi-super mesh, soft shadows with the global search,
+    the sphere route) and their parity with the CPU."""
+    import numpy as np
+    import torch
+
+    from srt_tpu_torch import optim
+    from srt_tpu_torch.camera import derive_viewport, generate_rays
+    from srt_tpu_torch.config import CameraConfig, RenderConfig
+    from srt_tpu_torch.models import edge_aware, edge_aware_mesh, mesh
+    from srt_tpu_torch.ops import rng
+    from srt_tpu_torch.ops import traversal as tr
+    from srt_tpu_torch.scene import (default_sphere_scene,
+                                     model_scene_lights, sphere_scene_lights)
+    from srt_tpu_torch.utils.flatten import flatten_models
+    from srt_tpu_torch.utils.obj_loader import compute_vertex_normals
+    from srt_tpu_torch.utils.procgen import rubik_grid, uv_sphere
+
+    t_phase = time.perf_counter()
+    card = cases.card
+    gib = 2.0 ** 30
+    cfg = RenderConfig(max_depth=2, rr_bounces=0, morton_order=False)
+
+    def config10a(d, size):
+        """The Rubik grid (324 triangles, one super) and config10a's
+        ``render_ea`` (``bench_suite.py:497-503``) on device d."""
+        rubik = mesh.upload(flatten_models([rubik_grid()], pad_to=128), d)
+        cam = CameraConfig(width=size, height=size, **CONFIG3_CAMERA)
+        lights = model_scene_lights(d)
+
+        def image(positions, key):
+            return edge_aware_mesh.render_edge_aware_mesh(
+                mesh.with_positions(rubik, positions), lights, cam, cfg, key,
+                method="walk", search="ring", rings=1)
+        return rubik, cam, image
+
+    # (a) config10a: 6 fixed-noise Adam steps on the vertex buffer toward
+    # the image of the true vertices (key 7), step 0 dropped from the mean.
+    rubik, cam, image = config10a(dev, CONFIG10A_SIZE)
+    key7 = rng.key(7, dev)
+    with torch.no_grad():
+        target = image(rubik.positions, key7)
+        fwd_s, _ = host_median(lambda: image(rubik.positions, key7))
+    check_image("config10a target", target, CONFIG10A_SIZE)
+    # A step's kernels are its forward's (no kernel runs in a backward):
+    # every launch of one forward replayed through its plain version.
+    launched = replay_frame("13a", lambda: image(rubik.positions, key7),
+                            cases)
+    check(launched == set(ONE_SUPER_PATH),
+          f"the config10a forward launched {sorted(launched)}")
+
+    def loss(params, key):
+        return image(params[0], key).mean()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    bwd_s, grads = host_median(lambda: grad_of(loss, (rubik.positions,),
+                                               key7))
+    bwd_peak = torch.cuda.max_memory_allocated(dev) / gib
+    mags = check_grads("config10a", grads)
+    stamps = [time.perf_counter()]
+    tr.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    res = optim.run_inverse_rendering(
+        image, rubik.positions * 1.002, target, key7, steps=CONFIG10A_STEPS,
+        learning_rate=2e-3, fixed_noise=True, log_every=0,
+        callback=lambda i, p, loss_i: stamps.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / gib
+    launches = {k: v for k, v in tr.launch_counts.items() if v}
+    check(launches.get("intersect", 0) > 0 and launches.get("threefry", 0)
+          > 0 and not launches.get("cull"),
+          f"config10a launched {launches} (B2 and threefry, no B1: one "
+          f"super)")
+    losses = res.losses
+    check(len(losses) == CONFIG10A_STEPS and np.isfinite(losses).all()
+          and min(losses) <= losses[0], f"config10a: losses {losses}")
+    step_s = float(np.diff(stamps)[1:].mean())
+    per_step = {k: v / CONFIG10A_STEPS for k, v in launches.items()}
+    print(f"[13a] config10a (rubik_grid, {CONFIG10A_SIZE}x{CONFIG10A_SIZE}, "
+          f"2 bounces, render_edge_aware_mesh walk, ring search, 1 ring; "
+          f"{CONFIG10A_STEPS} fixed-noise Adam steps at 2e-3 from positions "
+          f"x 1.002): {step_s:.6f} s/step (mean of steps 1-"
+          f"{CONFIG10A_STEPS - 1}), step 0 {stamps[1] - stamps[0]:.6f} s, "
+          f"losses {losses}, min/first {min(losses) / losses[0]:.6f}; "
+          f"forward {fwd_s * 1e3:.3f} ms, forward + backward "
+          f"{bwd_s * 1e3:.3f} ms (median of {GRAD_REPS} after a warm call),"
+          f" max |g| {mags}; peak memory {peak:.3f} GiB in the steps, "
+          f"{bwd_peak:.3f} GiB in a gradient; launches a step {per_step}  "
+          f"[{card}]", flush=True)
+    if profile:
+        profile_frame(lambda: image(rubik.positions, key7),
+                      "config10a forward", fwd_s, profile)
+        profile_frame(lambda: grad_of(loss, (rubik.positions,), key7),
+                      "config10a forward + backward", bwd_s, profile)
+
+    # (b) The walk on a multi-super mesh: one trace_edge_aware_mesh frame
+    # of the headline mesh (50 supers) whose every launch is replayed
+    # through its plain version and timed beside its bound.
+    size = EA_WALK_SIZE
+    cam = CameraConfig(width=size, height=size, **HEADLINE_CAMERA)
+    lights = model_scene_lights(dev)
+    stream0 = rng.fold_in(rng.key(0, dev), 0)
+    out = []
+    launched = replay_frame(
+        "13b", lambda: out.append(edge_aware_mesh.trace_edge_aware_mesh(
+            scene, lights, cam, cfg, rng.KeyStream(stream0, size * size),
+            method="walk", search="ring", rings=1)), cases)
+    check(launched == set(SCAN_MESH_PATH),
+          f"the edge-aware headline frame launched {sorted(launched)}")
+    mean = check_image("edge-aware headline", out[0], size)
+    print(f"[13b] edge-aware headline frame ({scene.model_tri_count[0]}-tri "
+          f"uv_sphere, {size}x{size}, 2 bounces, walk, ring search): image "
+          f"mean {mean:.6f}  [{card}]", flush=True)
+
+    # (c) config10a's frame and vertex gradient at 32x32 on the card
+    # against the CPU; the primary winners equal.
+    def make10a(d):
+        rub, _, img = config10a(d, EA_PARITY_SIZE)
+        return (lambda p: img(p[0], rng.key(7, d))), [rub.positions]
+
+    winners = {}
+    for d in (dev, torch.device("cpu")):
+        rub, cam_s, _ = config10a(d, EA_PARITY_SIZE)
+        n = EA_PARITY_SIZE * EA_PARITY_SIZE
+        jitter = rng.KeyStream(rng.fold_in(rng.key(7, d), 0), n).take(2)
+        o, dd = generate_rays(derive_viewport(cam_s, device=d),
+                              EA_PARITY_SIZE, EA_PARITY_SIZE, jitter)
+        hit, _, tri, _ = edge_aware_mesh._primary_winner(rub, o, dd,
+                                                         cfg.t_min, "walk")
+        winners[d.type] = (hit.cpu(), tri.cpu())
+    check(all(torch.equal(a, b) for a, b in zip(winners[dev.type],
+                                                winners["cpu"])),
+          "config10a 32x32: card and CPU primary winners differ")
+    ea_parity("13c", f"config10a {EA_PARITY_SIZE}x{EA_PARITY_SIZE} (primary "
+              f"winners equal, {int(winners['cpu'][0].sum())} hits)",
+              make10a, dev, card, weld=True)
+
+    # (d) Soft shadows and the global search on a 13,312-triangle sphere
+    # (the production-scale scene of tests/test_mesh_silhouette.py).
+    def global_scene(d):
+        flat = flatten_models([compute_vertex_normals(
+            uv_sphere(*GLOBAL_SPHERE, radius=2.0))], pad_to=128)
+        return mesh.upload(flat, d)
+
+    cfg_g = RenderConfig(max_depth=1, rr_bounces=0, morton_order=False)
+
+    def global_image(d, w, h):
+        sc = global_scene(d)
+        cam_g = CameraConfig(width=w, height=h, **HEADLINE_CAMERA)
+        lights_g = model_scene_lights(d)
+        key = rng.fold_in(rng.key(17, d), 0)
+
+        def img(params):
+            return edge_aware_mesh.trace_edge_aware_mesh(
+                mesh.with_positions(sc, params[0]), lights_g, cam_g, cfg_g,
+                rng.KeyStream(key, w * h), method="walk", search="global",
+                soft_shadow_band=0.1)
+        return img, [sc.positions]
+
+    img_g, params_g = global_image(dev, GLOBAL_SIZE, GLOBAL_SIZE)
+    n_tris = 2 * GLOBAL_SPHERE[0] * GLOBAL_SPHERE[1]
+    tr.reset_launch_counts()
+    with torch.no_grad():
+        g_fwd_s, frame = host_median(lambda: img_g(params_g), reps=1)
+    check_image("global search", frame, GLOBAL_SIZE)
+    torch.cuda.reset_peak_memory_stats(dev)
+    g_bwd_s, grads = host_median(
+        lambda: grad_of(lambda p, _k: img_g(p).mean(), params_g, None),
+        reps=1)
+    g_peak = torch.cuda.max_memory_allocated(dev) / gib
+    mags = check_grads("global search", grads)
+    found = path_launches("global search", SCAN_MESH_PATH, tr.launch_counts)
+    print(f"[13d] uv_sphere{GLOBAL_SPHERE} with vertex normals "
+          f"({n_tris} triangles), {GLOBAL_SIZE}x"
+          f"{GLOBAL_SIZE}, 1 bounce, global search, soft_shadow_band 0.1: "
+          f"forward {g_fwd_s * 1e3:.3f} ms, forward + backward "
+          f"{g_bwd_s * 1e3:.3f} ms (one after a warm call), peak memory "
+          f"{g_peak:.3f} GiB, max |g| {mags}, launches {found}  [{card}]",
+          flush=True)
+    w, h = GLOBAL_PARITY
+    ea_parity("13d", f"global search {w}x{h}",
+              lambda d: global_image(d, w, h), dev, card, weld=True)
+
+    # (e) The sphere route (plain PyTorch: threefry is its only kernel).
+    size = EA_SPHERE_SIZE
+    spheres, s_lights = default_sphere_scene(dev), sphere_scene_lights(dev)
+    cam = CameraConfig(width=size, height=size)
+    key = rng.fold_in(rng.key(9, dev), 0)
+    times = {}
+    for name, fn in (("trace_edge_aware", edge_aware.trace_edge_aware),
+                     ("trace_edge_aware_reflection",
+                      edge_aware.trace_edge_aware_reflection)):
+        with torch.no_grad():
+            times[name], img = host_median(lambda: fn(
+                spheres, s_lights, cam, cfg, rng.KeyStream(key, size * size)))
+        check_image(name, img, size)
+    print(f"[13e] spheres {size}x{size}, 2 bounces: trace_edge_aware "
+          f"{times['trace_edge_aware'] * 1e3:.3f} ms, "
+          f"trace_edge_aware_reflection "
+          f"{times['trace_edge_aware_reflection'] * 1e3:.3f} ms (median of "
+          f"{GRAD_REPS} after a warm call)  [{card}]", flush=True)
+    for name in ("trace_edge_aware", "trace_edge_aware_reflection"):
+        def make_s(d, name=name):
+            sph = default_sphere_scene(d)
+            lts = sphere_scene_lights(d)
+            cam_s = CameraConfig(width=EA_PARITY_SIZE, height=EA_PARITY_SIZE)
+            k = rng.fold_in(rng.key(9, d), 0)
+            return (lambda p: getattr(edge_aware, name)(
+                dataclasses.replace(sph, center=p[0], radius=p[1]), lts,
+                cam_s, cfg, rng.KeyStream(k, EA_PARITY_SIZE ** 2))), \
+                [sph.center, sph.radius]
+        ea_parity("13e", f"{name} {EA_PARITY_SIZE}x{EA_PARITY_SIZE}", make_s,
+                  dev, card)
+    print(f"[13] edge-aware phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="PATH")
@@ -2768,6 +3083,7 @@ def main(argv=None) -> int:
     phase_grad(scene, cases, args.profile, dev)
     phase_textures_nee(scene, cases, args.profile, dev)
     phase_app(scene, cases, args.profile, dev)
+    phase_edge_aware(scene, cases, args.profile, dev)
 
     # Each kernel's first case, or its LINE_CASES case: device ms, plain ms
     # and bound of one call.  No single PyTorch call computes a cull, a
@@ -2785,7 +3101,7 @@ def main(argv=None) -> int:
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
             library_ms=None))
-    print(f"[13] all phases passed in {time.perf_counter() - t_start:.1f} s",
+    print(f"[14] all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

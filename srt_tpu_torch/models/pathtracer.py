@@ -28,7 +28,11 @@ toward it (next-event estimation), combined with BSDF sampling by the
 one-sample balance heuristic; the carry then holds ``prev_pdf``, the
 mixture pdf of the direction that led to the hit.
 
-Not ported yet: the ``shadow_fn`` hook.
+``shadow_fn`` replaces the binary shadow test with a continuous light
+visibility multiplier (the edge-aware renderers' soft shadows,
+``models/edge_aware.py``, ``models/edge_aware_shadow.py``);
+``bounce_step(return_aux=True)`` also reports the bounce's lobe choice
+and hit record (the edge-aware reflection traces).
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ from srt_tpu_torch.ops import brdf, intersect, rng, vec
 from srt_tpu_torch.ops.gather import take_small_t
 from srt_tpu_torch.ops.morton import (PermutedStream, morton_perm,
                                       permute_rays, unpermute_image)
-from srt_tpu_torch.ops.safemath import clip, maximum
+from srt_tpu_torch.ops.safemath import absolute, clip, maximum
 from srt_tpu_torch.ops.vec import bc
 from srt_tpu_torch.scene import Lights, Materials, Spheres
 
@@ -276,7 +280,8 @@ def _masked(mask, x):
 
 
 def bounce_step(closest_hit, lights: Lights, cfg: RenderConfig, carry,
-                bounce: int, u, sort: bool, emitters=None):
+                bounce: int, u, sort: bool, shadow_fn=None,
+                return_aux: bool = False, emitters=None):
     """One path-tracing bounce on a wavefront slice: the body of the scan
     integrator (``trace_wavefront``) and of the compact driver.
 
@@ -287,7 +292,15 @@ def bounce_step(closest_hit, lights: Lights, cfg: RenderConfig, carry,
     wavefront order (NEE reads 3 more slots, ``rng.bounce_slots``).
     ``sort`` re-sorts live rays first for the next bounce
     (``_bounce_sort_keys``).  Returns (carry', stats [2] int32 = (rays
-    traced, shadow queries))."""
+    traced, shadow queries)).
+
+    ``shadow_fn(closest_hit, p, l_pos, t_min, active) -> mult [N]``
+    replaces the binary occlusion test toward the sampled point light
+    with a continuous visibility multiplier, traced for every active hit
+    (no masking, no sorted batch); None keeps the binary test.  The NEE
+    segment keeps the binary test either way.  ``return_aux=True``
+    (requires ``sort=False``) also returns ``{"take_spec", "rough",
+    "hit", "t"}`` of this bounce, in the slice's input order."""
     nee_on = emitters is not None and cfg.nee
     origins, dirs, throughput, color, alive, pix = carry[:6]
     k = 6
@@ -313,7 +326,7 @@ def bounce_step(closest_hit, lights: Lights, cfg: RenderConfig, carry,
         credit = throughput * rec.emitted
         if nee_on and rec.tri is not None:
             pdfa_hit = emitters.tri_pdfa[torch.clamp_min(rec.tri, 0).long()]
-            cos_hit = (rec.normal * dirs).sum(0).abs()
+            cos_hit = absolute((rec.normal * dirs).sum(0))
             # t guarded so no inf * 0 reaches an unselected where branch
             # (it would poison the backward).
             t_h = torch.where(active, rec.t, torch.ones_like(rec.t))
@@ -335,16 +348,21 @@ def bounce_step(closest_hit, lights: Lights, cfg: RenderConfig, carry,
     l_col = take_small_t(lights.color, light_idx)
     l_int = take_small_t(lights.intensity[:, None], light_idx)[0]
 
-    # Shadow queries whose answer multiplies an exact zero (failed RIS
-    # draw, light behind the shading normal) trace with t_max = 0.
-    ndl_pos = (rec.normal * brdf.light_dir_to(rec.p, l_pos)).sum(0) > 0.0
-    shadow_active = active & sampled & ndl_pos
-    if cfg.sort_shadows_from is not None and bounce >= cfg.sort_shadows_from:
-        occ = _occluded_sorted(closest_hit, rec.p, l_pos, light_idx,
-                               cfg.t_min, shadow_active)
+    if shadow_fn is None:
+        # Shadow queries whose answer multiplies an exact zero (failed RIS
+        # draw, light behind the shading normal) trace with t_max = 0.
+        ndl_pos = (rec.normal * brdf.light_dir_to(rec.p, l_pos)).sum(0) > 0.0
+        shadow_active = active & sampled & ndl_pos
+        if (cfg.sort_shadows_from is not None
+                and bounce >= cfg.sort_shadows_from):
+            occ = _occluded_sorted(closest_hit, rec.p, l_pos, light_idx,
+                                   cfg.t_min, shadow_active)
+        else:
+            occ = _occluded(closest_hit, rec.p, l_pos, cfg.t_min,
+                            shadow_active)
+        shadow_mult = torch.where(occ, 0.0, 1.0).to(torch.float32)
     else:
-        occ = _occluded(closest_hit, rec.p, l_pos, cfg.t_min, shadow_active)
-    shadow_mult = torch.where(occ, 0.0, 1.0).to(torch.float32)
+        shadow_mult = shadow_fn(closest_hit, rec.p, l_pos, cfg.t_min, active)
 
     direct_spec = brdf.sample_direct(
         rec.p, rec.normal, view, rec.mat, l_pos, l_col, l_int, shadow_mult
@@ -370,7 +388,7 @@ def bounce_step(closest_hit, lights: Lights, cfg: RenderConfig, carry,
         d2 = maximum(vec.norm2(delta_l), 1e-12)
         dist = torch.sqrt(d2)
         wi = delta_l / bc(dist)
-        cos_l = (n_l * wi).sum(0).abs()                  # two-sided Ke
+        cos_l = absolute((n_l * wi).sum(0))              # two-sided Ke
         front = (rec.normal * wi).sum(0) > 0.0
         pdf_nee = pdf_a * d2 / maximum(cos_l, 1e-6)
         # The same GGX half-vector draw as sample_indirect below, so the
@@ -456,6 +474,13 @@ def bounce_step(closest_hit, lights: Lights, cfg: RenderConfig, carry,
         shadow_queries = shadow_queries + nee_active.sum()
     stats = torch.stack([alive.sum(), shadow_queries]).to(torch.int32)
     out = (origins, dirs, throughput, color, cont, pix) + extra
+    if return_aux:
+        if sort:
+            raise ValueError("return_aux reports pre-sort order; use "
+                             "sort=False")
+        return out, stats, {"take_spec": take_spec,
+                            "rough": rec.mat.roughness, "hit": rec.hit,
+                            "t": rec.t}
     if sort:
         order = torch.argsort(_bounce_sort_keys(origins, dirs, cont, bounce),
                               stable=True)
@@ -496,7 +521,7 @@ def with_primary_spread(cfg: RenderConfig, cam: CameraConfig):
 
 def trace_wavefront(closest_hit, lights: Lights, origins, dirs, stream,
                     cfg: RenderConfig, return_stats: bool = False,
-                    emitters=None):
+                    shadow_fn=None, emitters=None):
     """Trace a ``[3, N]`` ray batch to radiance ``[3, N]``: the JAX
     package's ``lax.scan`` over ``max_depth + rr_bounces`` bounces as a
     loop, every bounce at the full width N (dead rays trace with
@@ -509,8 +534,9 @@ def trace_wavefront(closest_hit, lights: Lights, origins, dirs, stream,
     to pixel order at the end.  With ``return_stats`` also returns the
     per-bounce (rays traced, shadow queries) [B, 2] int32.
 
-    ``emitters`` (``models/emitters.py``) with ``cfg.nee`` turns on
-    next-event estimation: each bounce then takes 3 more slots."""
+    ``shadow_fn`` goes to every bounce (``bounce_step``).  ``emitters``
+    (``models/emitters.py``) with ``cfg.nee`` turns on next-event
+    estimation: each bounce then takes 3 more slots."""
     n = origins.shape[1]
     dev = origins.device
     n_bounces = cfg.max_depth + cfg.rr_bounces
@@ -528,7 +554,8 @@ def trace_wavefront(closest_hit, lights: Lights, origins, dirs, stream,
         if cfg.sort_bounces:
             u = u[:, carry[5]]
         carry, st = bounce_step(closest_hit, lights, cfg, carry, b, u,
-                                sort=cfg.sort_bounces, emitters=emitters)
+                                sort=cfg.sort_bounces, shadow_fn=shadow_fn,
+                                emitters=emitters)
         stats.append(st)
     _, dirs, throughput, color, alive, pix = carry[:6]
     color = color + _masked(bc(alive), throughput * _sky(dirs, cfg))

@@ -18,7 +18,8 @@ from typing import NamedTuple
 import torch
 
 from srt_tpu_torch.ops import vec
-from srt_tpu_torch.ops.safemath import clip, maximum, minimum, safe_sqrt
+from srt_tpu_torch.ops.safemath import (absolute, clip, maximum, minimum,
+                                      safe_sqrt)
 from srt_tpu_torch.ops.vec import bc, dot
 from srt_tpu_torch.scene import Lights, Materials
 
@@ -74,7 +75,7 @@ def ggx_schlick_masking(n_dot_l, n_dot_v, roughness):
     k = roughness * roughness / 2.0
     g_v = n_dot_v / maximum(n_dot_v * (1.0 - k) + k, 0.001)
     g_l = n_dot_l / maximum(n_dot_l * (1.0 - k) + k, 0.001)
-    return (g_v * g_l).abs()
+    return absolute(g_v * g_l)
 
 
 def ggx_ndf_legacy(n_dot_h, roughness):

@@ -5,8 +5,9 @@ so no NaN or inf leaks through a ``where``.
 ``maximum``, ``minimum`` and ``clip`` bound a tensor by a constant with
 the JAX package's gradient at a tie: ``jnp.maximum``, ``jnp.minimum``
 and ``jnp.clip`` split the gradient half and half where the tensor
-equals the bound, while ``torch.clamp`` passes all of it.  Values are
-the same either way.  The bound is a 0-dim CPU tensor, which torch takes
+equals the bound, while ``torch.clamp`` passes all of it.  ``absolute``
+is ``jnp.abs``: its gradient at 0 is +1, where ``torch.abs`` gives 0.
+Values are the same either way.  The bound is a 0-dim CPU tensor, which torch takes
 as a scalar on any device (no copy to the card).
 """
 
@@ -44,3 +45,20 @@ def minimum(x, c: float):
 def clip(x, lo: float, hi: float):
     """``jnp.clip(x, lo, hi)``: ``minimum(maximum(x, lo), hi)``."""
     return minimum(maximum(x, lo), hi)
+
+
+class _Absolute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x.abs()
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, = ctx.saved_tensors
+        return torch.where(x >= 0.0, grad, -grad)
+
+
+def absolute(x):
+    """``jnp.abs(x)``: |x| with the gradient +1 at x = 0 (and -0.0)."""
+    return _Absolute.apply(x)
