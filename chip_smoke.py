@@ -190,13 +190,43 @@ Phases, one line each; the last line is printed only when all pass:
    default sphere scene at 256x256 (median of 3), and card vs CPU at
    32x32 as (c) (gradients w.r.t. centres and radii).  The phase prints
    its seconds.
+14. Sharded rendering (``srt_tpu_torch.parallel``, ``bench_suite.py``'s
+   config5 and config7) and the BVH stack route.  (a) A world of 1 on the
+   card (NCCL; ``device_mesh(1, 1)`` starts it on an in-process store):
+   config5 (the default sphere scene, 256x256, spp 2, 3 bounces) and
+   config7 (``uv_sphere(24, 36)``, ``pad_to=1``, the dense sweep, (0, 1,
+   5) toward the origin, 128x128, spp 2, 2 + 1 bounces) through
+   ``render_sharded`` on one shard: each image equal bit for bit to the
+   unsharded ``trace_wavefront`` of the same ``_draw_uniforms``, threefry
+   launched, Mpaths/s with ``bench_suite.py``'s accounting (size^2 x spp
+   over the median of 3 calls after a warm call); the 2-, 4- and 8-shard
+   rows are printed as not measured (one card).  (b) The sharded walk
+   frame: the headline mesh through ``render_sharded(mesh_hit_fn(scene,
+   method="walk"))``, the headline camera, 1024x1024, spp 1, 2 bounces:
+   one frame whose every kernel launch is replayed through its plain
+   version and timed beside its bound (B1, B2 and threefry), then the
+   frame ms (median of 3) and its launches.  (c) A world of 2 on the one
+   card (gloo, both ranks on ``cuda:0``, started with ``spawn`` after the
+   kernels are built, under a time limit): the headline walk frame at
+   256x256 and config7 gathered on each rank against the world of 1
+   (rtol 1e-5 / atol 1e-6; the pixels not equal bit for bit printed),
+   ``render_multihost`` equal to the gathered frame, config7's d
+   mean(image^2) / d (mat_diffuse, positions) against the world of 1's
+   (rtol 5e-4 / atol 1e-6), B1, B2 and threefry launched on each rank,
+   and the host ms of one all-gather of the frame's radiance and one
+   all-reduce of config7's gradient buffer; no scaling figure (two ranks
+   share one card).  (d) ``wavefront.hit_ids`` on 16,384 headline
+   primaries: the BVH ids equal the dense ids; the ms of one BVH, dense
+   and walk call each; a ``refit_accel``-ed scene refuses the BVH route.  The
+   phase prints its seconds.
 
 Each path (the headline frames, the config8 frames, the counter run, the
 binned frames, the pg frames, the scan frames of phase 9, the backward
 passes and the optimizer steps of phase 10, the config9, textured-plan
 and config11 frames of phase 11, the session frames of phase 12,
-config10a's optimizer steps and the global-search frames of phase 13) is
-driven with
+config10a's optimizer steps and the global-search frames of phase 13, the
+one-shard config5 and config7 frames, the sharded walk frames and each
+rank's walk frame in the world of 2 of phase 14) is driven with
 the launch counts set to 0 just before it and read just after; every
 kernel must be launched by its path.  Each replayed B4/B4s launch also prints its groups, the clusters
 its lists name and the split P its wrapper chose; each B7 launch its
@@ -223,8 +253,9 @@ frame of each render (headline, config8, binned, pg, and phase 9's
 config2, config6 and config3, phase 11's config9, textured and
 untextured plan and config11 NEE frames) and of phase 10's config6
 forward + backward, config2's and config3's, of one step of phase 12's
-headline session and of phase 13's config10a forward and forward +
-backward to PATH (the source of PERF.md section 5).
+headline session, of phase 13's config10a forward and forward +
+backward and of one sharded walk frame of phase 14 to PATH (the source
+of PERF.md section 5).
 """
 
 from __future__ import annotations
@@ -328,6 +359,14 @@ CONFIG10A_SIZE, CONFIG10A_STEPS = 256, 6
 EA_WALK_SIZE, EA_PARITY_SIZE = 256, 32
 GLOBAL_SPHERE, GLOBAL_SIZE, GLOBAL_PARITY = (64, 104), 64, (28, 24)
 EA_SPHERE_SIZE = 256
+# Phase 14 (sharded rendering, bench_suite.py's config5 and config7, and
+# the BVH route): config5's and config7's image sizes, the sharded walk
+# frame's size in the world of 1 and in the world of 2, the BVH route's
+# primaries (a square image of that side), the world of 2's time limit in
+# seconds (spawn to join; each rank's rendezvous and collectives too).
+CONFIG5_SIZE, CONFIG7_SIZE = 256, 128
+SHARD_WALK_SIZE, WORLD2_WALK_SIZE = 1024, 256
+BVH_SIZE, WORLD2_TIMEOUT = 128, 300.0
 # Rays of the few-group B4/B4s cases (8 groups at G = 32), and the list
 # entries B4 stages in shared memory (LIST_SH, csrc/pgwalk2.cu).
 FEW_RAYS, LIST_STAGED = 256, 256
@@ -1794,17 +1833,24 @@ def phase_scan(scene, cases, profile, dev):
           flush=True)
 
 
+def synchronize():
+    """``torch.cuda.synchronize()`` where there is a card (a spawned rank
+    of a CPU rehearsal has none)."""
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
 def host_median(fn, reps=GRAD_REPS):
     """Median wall seconds of ``fn()`` (each call synchronized) over
     ``reps`` calls after one warm call; returns (s, last result)."""
-    import torch
     out = fn()
-    torch.cuda.synchronize()
+    synchronize()
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
         out = fn()
-        torch.cuda.synchronize()
+        synchronize()
         times.append(time.perf_counter() - t0)
     return sorted(times)[reps // 2], out
 
@@ -3012,6 +3058,313 @@ def phase_edge_aware(scene, cases, profile, dev):
           flush=True)
 
 
+def sharded_walk(scene, lights, mesh, size, key, multihost=False):
+    """Phase 14b/c: the headline mesh through the walk at size x size, the
+    headline camera, spp 1, 2 bounces: ``render_sharded`` over ``mesh``,
+    or with ``multihost`` ``render_multihost`` of ``fold_in(key, 0)`` (the
+    same uniforms: a numpy image)."""
+    from srt_tpu_torch.config import CameraConfig, RenderConfig
+    from srt_tpu_torch.models import mesh as mesh_mod
+    from srt_tpu_torch.ops import rng
+    from srt_tpu_torch.parallel import render_sharded
+    from srt_tpu_torch.parallel.multihost import render_multihost
+    cam = CameraConfig(width=size, height=size, **HEADLINE_CAMERA)
+    cfg = RenderConfig(max_depth=2, rr_bounces=0)
+
+    def walk(s):
+        return mesh_mod.mesh_hit_fn(s, method="walk")
+    if multihost:
+        return render_multihost(walk, scene, lights, cam, cfg,
+                                rng.fold_in(key, 0), mesh)
+    return render_sharded(walk, scene, lights, cam, cfg, key, mesh)
+
+
+def config7_case(dev, size):
+    """config7 (``bench_suite.py:278-315``): ``uv_sphere(24, 36)``,
+    ``pad_to=1``, the dense sweep, (0, 1, 5) toward the origin, size x
+    size, spp 2, 2 + 1 bounces: (hit fn maker, scene, lights, cam,
+    cfg)."""
+    from srt_tpu_torch.config import CameraConfig, RenderConfig
+    from srt_tpu_torch.models import mesh
+    from srt_tpu_torch.scene import model_scene_lights
+    from srt_tpu_torch.utils.flatten import flatten_models
+    from srt_tpu_torch.utils.procgen import uv_sphere
+    scene = mesh.upload(flatten_models([uv_sphere(24, 36)], pad_to=1), dev)
+    return ((lambda s: mesh.mesh_hit_fn(s, method="dense")), scene,
+            model_scene_lights(dev),
+            CameraConfig(width=size, height=size, **HEADLINE_CAMERA),
+            RenderConfig(max_depth=2, rr_bounces=1, spp=2))
+
+
+def config7_grads(c7, mesh, key):
+    """d mean(image^2) / d (mat_diffuse, positions) of config7 through
+    ``render_sharded`` (``tests/test_parallel.py:171-205``'s train step):
+    (loss, d diffuse, d positions, elements all-reduced a step)."""
+    import torch
+
+    from srt_tpu_torch.models.mesh import with_positions
+    from srt_tpu_torch.parallel import render_sharded
+    make_hit, scene, lights, cam, cfg = c7
+    diffuse = scene.mat_diffuse.clone().requires_grad_(True)
+    positions = scene.positions.clone().requires_grad_(True)
+    s = with_positions(dataclasses.replace(scene, mat_diffuse=diffuse),
+                       positions)
+    loss = (render_sharded(make_hit, s, lights, cam, cfg, key, mesh)
+            ** 2).mean()
+    g_d, g_p = torch.autograd.grad(loss, (diffuse, positions))
+    # The tensors _Replicated routes: mat_diffuse, positions, tri_v0..2.
+    elems = sum(x.numel() for x in (s.mat_diffuse, s.positions, s.tri_v0,
+                                    s.tri_v1, s.tri_v2))
+    return float(loss.detach()), g_d, g_p, elems
+
+
+def unsharded_image(make_hit, scene, lights, cam, cfg, key):
+    """What ``render_sharded`` computes, with no mesh: ``trace_wavefront``
+    over ``_draw_uniforms(fold_in(key, s))`` for each sample, averaged."""
+    import torch
+
+    from srt_tpu_torch.camera import derive_viewport, generate_rays
+    from srt_tpu_torch.models.pathtracer import trace_wavefront
+    from srt_tpu_torch.ops import rng
+    from srt_tpu_torch.parallel.render_sharded import _draw_uniforms
+    n = cam.width * cam.height
+    acc = torch.zeros((3, n), device=key.device)
+    for s in range(cfg.spp):
+        u = _draw_uniforms(rng.fold_in(key, s), n, lights.count,
+                           cfg.max_depth + cfg.rr_bounces)
+        o, d = generate_rays(derive_viewport(cam, device=key.device),
+                             cam.width, cam.height, u[:, 0:2].T)
+        stream = rng.ArrayStream(u)
+        stream.take(2)
+        acc = acc + trace_wavefront(make_hit(scene), lights, o, d, stream,
+                                    cfg)
+    return (acc / cfg.spp).T.reshape(cam.height, cam.width, 3)
+
+
+def sharded_rank(rank, world, device, sphere, walk_size, c7_size):
+    """Phase 14c: one rank of the gloo world on the one card (``device``
+    None: ``cuda:0`` for every rank; the sizes are passed, as a spawned
+    rank imports this module afresh).  Returns the headline walk frame
+    (gathered, and through ``render_multihost``) with its launch counts,
+    config7's image and gradients, and the host ms of one all-gather of
+    the walk frame's radiance and one all-reduce of config7's gradient
+    buffer at this world's shapes."""
+    import torch
+    import torch.distributed as dist
+
+    from srt_tpu_torch.ops import rng
+    from srt_tpu_torch.ops import traversal as tr
+    from srt_tpu_torch.parallel import device_mesh
+    from srt_tpu_torch.parallel.mesh import rank_device
+    from srt_tpu_torch.parallel.render_sharded import (_gather_columns,
+                                                       _rays_order)
+    from srt_tpu_torch.scene import model_scene_lights
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = rank_device(device)
+    mesh = device_mesh(world, 1, device=device)
+    scene, _ = build_scene(dev, *sphere)
+    lights = model_scene_lights(dev)
+    key = rng.key(14, dev)
+    tr.reset_launch_counts()
+    img = sharded_walk(scene, lights, mesh, walk_size, key)
+    synchronize()
+    launches = {k: v for k, v in tr.launch_counts.items() if v}
+    tile_img = sharded_walk(scene, lights, mesh, walk_size, key,
+                            multihost=True)
+    c7 = config7_case(dev, c7_size)
+    img7 = render_sharded_of(c7, rng.key(7, dev), mesh)
+    loss, g_d, g_p, elems = config7_grads(c7, mesh, rng.key(3, dev))
+    group = mesh.get_group("rays")
+    order = _rays_order(mesh, group)
+    local = torch.rand((3, walk_size ** 2 // world), device=dev)
+    flat = torch.rand((elems,), device=dev)
+    gather_s, _ = host_median(lambda: _gather_columns(local, group, order),
+                              reps=5)
+    reduce_s, _ = host_median(lambda: dist.all_reduce(flat, group=group),
+                              reps=5)
+    return dict(
+        walk=img.cpu(), launches=launches, multihost=tile_img,
+        config7=img7.cpu(), grads=(loss, g_d.cpu(), g_p.cpu()),
+        gather=(gather_s * 1e3, local.numel()),
+        reduce=(reduce_s * 1e3, elems))
+
+
+def render_sharded_of(case, key, mesh):
+    from srt_tpu_torch.parallel import render_sharded
+    make_hit, scene, lights, cam, cfg = case
+    return render_sharded(make_hit, scene, lights, cam, cfg, key, mesh)
+
+
+def phase_sharded(scene, cases, profile, dev):
+    """Phase 14: sharded rendering (``srt_tpu_torch.parallel``) in a world
+    of 1 (NCCL) and a world of 2 (gloo, both ranks on the card), and the
+    BVH stack route."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from srt_tpu_torch.camera import derive_viewport, generate_rays
+    from srt_tpu_torch.config import CameraConfig, RenderConfig
+    from srt_tpu_torch.models import mesh as mesh_mod
+    from srt_tpu_torch.models import pathtracer, wavefront
+    from srt_tpu_torch.ops import rng
+    from srt_tpu_torch.ops import traversal as tr
+    from srt_tpu_torch.parallel import device_mesh
+    from srt_tpu_torch.parallel.launch import spawn_world
+    from srt_tpu_torch.scene import (default_sphere_scene,
+                                     model_scene_lights, sphere_scene_lights)
+
+    t_phase = time.perf_counter()
+    card = cases.card
+    device = None if dev.type == "cuda" else dev
+    mesh1 = device_mesh(1, 1, device=device)
+    print(f"[14] world of 1: backend {dist.get_backend()}, mesh "
+          f"{mesh1.mesh.tolist()}", flush=True)
+    try:
+        # (a) config5 and config7, one shard: Mpaths/s as bench_suite.py
+        # counts them, and the image against the unsharded trace.
+        c5 = (pathtracer.spheres_hit_fn, default_sphere_scene(dev),
+              sphere_scene_lights(dev),
+              CameraConfig(width=CONFIG5_SIZE, height=CONFIG5_SIZE),
+              RenderConfig(max_depth=3, rr_bounces=0, spp=2))
+        c7 = config7_case(dev, CONFIG7_SIZE)
+        key0 = rng.key(0, dev)
+        for label, case in (("config5", c5), ("config7", c7)):
+            make_hit, sc, lights, cam, cfg = case
+            tr.reset_launch_counts()
+            img = render_sharded_of(case, key0, mesh1)
+            torch.cuda.synchronize()
+            found = path_launches(label, SPHERE_PATH, tr.launch_counts)
+            check_image(label, img, cam.width)
+            ref = unsharded_image(make_hit, sc, lights, cam, cfg, key0)
+            check(torch.equal(img, ref), f"{label}: the one-shard image "
+                                         f"differs from the unsharded trace")
+            s, _ = host_median(lambda: render_sharded_of(case, key0, mesh1))
+            paths = cam.width * cam.height * cfg.spp
+            print(f"[14a] {label} {cam.width}x{cam.height}, spp {cfg.spp}, "
+                  f"{cfg.max_depth}+{cfg.rr_bounces} bounces, 1 shard: "
+                  f"{paths / s / 1e6:.4f} Mpaths/s ({s * 1e3:.3f} ms, median "
+                  f"of {GRAD_REPS} after a warm call); equal to the unsharded "
+                  f"trace bit for bit; launches {found}  [{card}]",
+                  flush=True)
+            print(f"[14a] {label} 2, 4, 8 shards: not measured (one card)",
+                  flush=True)
+
+        # (b) The sharded walk frame: every launch replayed, then timed.
+        lights = model_scene_lights(dev)
+        key = rng.key(14, dev)
+        out = []
+        launched = replay_frame("14b", lambda: out.append(sharded_walk(
+            scene, lights, mesh1, SHARD_WALK_SIZE, key)), cases)
+        check(launched == set(SCAN_MESH_PATH),
+              f"the sharded walk frame launched {sorted(launched)}")
+        tr.reset_launch_counts()
+        s, img = host_median(lambda: sharded_walk(scene, lights, mesh1,
+                                                  SHARD_WALK_SIZE, key))
+        per_frame = {k: v // (GRAD_REPS + 1)
+                     for k, v in tr.launch_counts.items() if v}
+        check(torch.equal(img, out[0]), "the sharded walk frame is not "
+                                        "deterministic")
+        check_image("sharded walk frame", img, SHARD_WALK_SIZE)
+        print(f"[14b] sharded walk frame {SHARD_WALK_SIZE}x{SHARD_WALK_SIZE}"
+              f", 2 bounces, 1 shard: {s * 1e3:.3f} ms (median of "
+              f"{GRAD_REPS} after a warm call), launches a frame "
+              f"{per_frame}  [{card}]", flush=True)
+        if profile:
+            profile_frame(lambda: sharded_walk(scene, lights, mesh1,
+                                               SHARD_WALK_SIZE, key),
+                          "sharded walk frame (world of 1)", s, profile)
+
+        # (c) A gloo world of 2 on the one card against the world of 1.
+        ref_walk = sharded_walk(scene, lights, mesh1, WORLD2_WALK_SIZE,
+                                key).cpu()
+        ref7 = render_sharded_of(c7, rng.key(7, dev), mesh1).cpu()
+        ref_g = config7_grads(c7, mesh1, rng.key(3, dev))
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            ranks = spawn_world(
+                sharded_rank, 2, (device, HEADLINE_SPHERE, WORLD2_WALK_SIZE,
+                                  CONFIG7_SIZE),
+                workdir=tmp, backend="gloo", device=device,
+                timeout=WORLD2_TIMEOUT)
+        world_s = time.perf_counter() - t0
+        for r, res in enumerate(ranks):
+            path_launches(f"world of 2, rank {r}", SCAN_MESH_PATH,
+                          res["launches"])
+            for label, got, want in (
+                    ("walk frame", res["walk"], ref_walk),
+                    ("config7", res["config7"], ref7)):
+                check(bool(torch.allclose(got, want, rtol=1e-5, atol=1e-6)),
+                      f"world of 2, rank {r}: the {label} is beyond rtol "
+                      f"1e-5 / atol 1e-6 of the world of 1")
+                print(f"[14c] rank {r} {label}: "
+                      f"{int((got != want).any(-1).sum())} of "
+                      f"{got.shape[0] * got.shape[1]} pixels not equal bit "
+                      f"for bit to the world of 1 (max |err| "
+                      f"{float((got - want).abs().max()):.3e})", flush=True)
+            check(np.array_equal(res["multihost"], res["walk"].numpy()),
+                  f"world of 2, rank {r}: render_multihost differs from "
+                  f"the gathered walk frame")
+            loss, g_d, g_p = res["grads"]
+            check(abs(loss - ref_g[0]) <= 1e-5 * abs(ref_g[0]),
+                  f"world of 2, rank {r}: config7 loss {loss} vs {ref_g[0]}")
+            for name, got, want in (("mat_diffuse", g_d, ref_g[1]),
+                                    ("positions", g_p, ref_g[2])):
+                check(bool(torch.allclose(got, want.cpu(), rtol=5e-4,
+                                          atol=1e-6)),
+                      f"world of 2, rank {r}: d / d {name} beyond rtol 5e-4 "
+                      f"/ atol 1e-6 of the world of 1")
+            print(f"[14c] rank {r}: launches {res['launches']}; "
+                  f"render_multihost equals the gathered frame; config7 "
+                  f"gradients within rtol 5e-4 / atol 1e-6 (max |err| "
+                  f"{float((g_d - ref_g[1].cpu()).abs().max()):.3e}, "
+                  f"{float((g_p - ref_g[2].cpu()).abs().max()):.3e}); "
+                  f"all-gather of {res['gather'][1]} floats "
+                  f"{res['gather'][0]:.3f} ms, all-reduce of "
+                  f"{res['reduce'][1]} floats {res['reduce'][0]:.3f} ms "
+                  f"(gloo through host memory)  [{card}]", flush=True)
+        print(f"[14c] world of 2 (gloo, both ranks on one card): "
+              f"{world_s:.1f} s, spawn to join", flush=True)
+
+        # (d) The BVH route: ids against the dense sweep's.
+        n_side = BVH_SIZE
+        cam = CameraConfig(width=n_side, height=n_side, **HEADLINE_CAMERA)
+        o, d = generate_rays(derive_viewport(cam, device=dev), n_side, n_side,
+                             torch.full((2, n_side * n_side), 0.5,
+                                        device=dev))
+        o, d = o.T.contiguous(), d.T.contiguous()
+        ids, times = {}, {}
+        for method in ("bvh", "dense", "walk"):
+            synchronize()
+            t0 = time.perf_counter()
+            ids[method], _ = wavefront.hit_ids(scene, o, d, method=method)
+            synchronize()
+            times[method] = (time.perf_counter() - t0) * 1e3
+        check(torch.equal(ids["bvh"], ids["dense"]),
+              f"BVH ids differ from dense ids on "
+              f"{int((ids['bvh'] != ids['dense']).sum())} rays")
+        try:
+            wavefront.hit_ids(mesh_mod.refit_accel(scene), o[:64], d[:64],
+                              method="bvh")
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused, "a refit_accel-ed scene did not refuse the BVH route")
+        print(f"[14d] hit_ids on {o.shape[0]} headline primaries: bvh "
+              f"{times['bvh']:.3f} ms, dense {times['dense']:.3f} ms, walk "
+              f"{times['walk']:.3f} ms; bvh ids equal dense ids "
+              f"({int((ids['bvh'] >= 0).sum())} hits), walk ids equal on "
+              f"{int((ids['walk'] == ids['dense']).sum())}; the refit scene "
+              f"refuses bvh  [{card}]", flush=True)
+    finally:
+        dist.destroy_process_group()
+    print(f"[14] sharded phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="PATH")
@@ -3084,6 +3437,7 @@ def main(argv=None) -> int:
     phase_textures_nee(scene, cases, args.profile, dev)
     phase_app(scene, cases, args.profile, dev)
     phase_edge_aware(scene, cases, args.profile, dev)
+    phase_sharded(scene, cases, args.profile, dev)
 
     # Each kernel's first case, or its LINE_CASES case: device ms, plain ms
     # and bound of one call.  No single PyTorch call computes a cull, a
@@ -3101,7 +3455,7 @@ def main(argv=None) -> int:
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
             library_ms=None))
-    print(f"[14] all phases passed in {time.perf_counter() - t_start:.1f} s",
+    print(f"[15] all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

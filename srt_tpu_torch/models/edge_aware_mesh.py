@@ -25,10 +25,12 @@ edges), for sub-pixel triangles).  Model frames are assumed rigid.
 
 ``method`` is the traversal: ``"walk"`` (the default, as in
 ``mesh.mesh_hit_fn``: the kernels on CUDA tensors, their plain versions
-on CPU tensors; the JAX package's ``"pallas"``) or ``"dense"``.  The
-walk's winner distance is the kernels' candidate t, outside the autograd
-graph (JAX's ``pallas_model_hit(refine=False)``); the dense sweep's t
-carries a gradient into the footprint.
+on CPU tensors; the JAX package's ``"pallas"``), ``"dense"`` or
+``"bvh"`` (the primary winner then comes from the dense sweep, as in JAX,
+and the bounces from the BVH stack walk).  The walk's winner distance is
+the kernels' candidate t, outside the autograd graph (JAX's
+``pallas_model_hit(refine=False)``); the dense sweep's t carries a
+gradient into the footprint.
 """
 
 from __future__ import annotations
@@ -64,7 +66,9 @@ def _primary_winner(scene: MeshScene, origins, dirs, t_min, method: str):
         if method == "walk":
             t, i, _, _ = traversal.model_hit(scene, b, origins, dirs, best_t,
                                              refine=False)
-        elif method == "dense":
+        elif method in ("dense", "bvh"):
+            # The BVH route's winner is the dense one, as in JAX
+            # (srt_tpu/models/edge_aware_mesh.py:81-83).
             t, i, _, _ = _dense_model_hit(scene, b, origins, dirs, best_t)
         else:
             raise ValueError(f"unknown traversal method: {method}")

@@ -8,6 +8,10 @@ Traversal methods:
   port's default on both devices.
 * ``"dense"`` — every ray against every triangle (Moller-Trumbore, in ray
   chunks): the independent traversal baseline.
+* ``"bvh"`` — the reference's per-ray stack walk of the BVH
+  (``_bvh_traverse``), plain PyTorch on the scene's device: a validation
+  route.  ``refit_accel`` leaves the node bounds stale, and the route
+  then refuses the scene.
 
 Gradients flow through the hit record to ``mat_diffuse`` and the other
 material rows, the vertices (``tri_v0/v1/v2``, or a shared ``positions``
@@ -22,8 +26,6 @@ the hit record's albedo is then a bilinear or trilinear fetch at the
 winner's interpolated UV, its mip level chosen from the hit distance or,
 with ``cone=(width, spread)`` from ``RenderConfig.ray_cones``, from the
 ray cone's footprint (``_mip_lod``).
-
-The BVH stack strategy is not ported.
 """
 
 from __future__ import annotations
@@ -290,6 +292,93 @@ def _dense_model_hit(scene: MeshScene, b: int, origins, dirs, t_best):
     return tuple(torch.cat(x) for x in zip(*outs))
 
 
+def _bvh_traverse(scene: MeshScene, root: int, o, d, t_init):
+    """Every ray through one model's BVH from node ``root``: ``Intersects``
+    (ray_intersects.glsl:99-133), the JAX package's per-ray
+    ``lax.while_loop`` run for all rays at once.  o/d [N, 3] model-space
+    rays, ``t_init`` [N] the running bound; returns (t, tri_idx, u, v) [N],
+    (t_init, -1, 0, 0) where the ray hits nothing nearer.
+
+    Each ray keeps its own stack ([N, stack_depth]) and stack pointer
+    ([N]); a ray whose stack is empty takes no more steps.  One step pops
+    a node, enters it when its slab distance is finite and below the
+    ray's closest t, tests a leaf's triangles (``max_leaf`` slots masked
+    by the leaf's count, in one batch; a strict ``t < best_t``) and
+    pushes an inner node's children, right first so the left is popped
+    first (the second push clamped to the stack's last slot, as in JAX).
+    Ties go to the first triangle visited.  The loop ends when every
+    stack is empty, which costs one read of the device per step."""
+    n = o.shape[0]
+    dev = o.device
+    depth = scene.stack_depth
+    n_tri = scene.tri_v0.shape[0]
+    rows = torch.arange(n, device=dev)
+    stack = torch.zeros((n, depth), dtype=torch.int64, device=dev)
+    stack[:, 0] = root
+    sp = torch.ones((n,), dtype=torch.int64, device=dev)
+    best_t = t_init
+    best_i = torch.full((n,), MISS, dtype=torch.int32, device=dev)
+    best_u = torch.zeros((n,), dtype=torch.float32, device=dev)
+    best_v = torch.zeros((n,), dtype=torch.float32, device=dev)
+    node_first = scene.node_first.long()
+    node_count = scene.node_count.long()
+    slots = torch.arange(scene.max_leaf, device=dev)
+    inf = torch.tensor(float("inf"), device=dev)
+    while bool((sp > 0).any()):
+        active = sp > 0
+        top = torch.clamp_min(sp - 1, 0)
+        ni = stack[rows, top]
+        dist = intersect.ray_aabb(o, d, scene.node_min[ni],
+                                  scene.node_max[ni])
+        enter = active & (dist < best_t) & torch.isfinite(dist)
+        first = node_first[ni]
+        count = node_count[ni]
+        is_leaf = count > 0
+        # A leaf's triangles, all max_leaf slots at once: the first of the
+        # smallest t below the ray's best is the winner of JAX's unrolled
+        # loop with its strict t < best_t.  Slots past the leaf's count
+        # read a clamped row, as JAX's gather clamps, and are masked out.
+        idx = first[:, None] + slots[None, :]
+        valid = (enter & is_leaf)[:, None] & (slots[None, :] < count[:, None])
+        g = torch.clamp(idx, 0, n_tri - 1)
+        t, u, v = intersect.mt_hits(o[:, None, :], d[:, None, :],
+                                    scene.tri_v0[g], scene.tri_v1[g],
+                                    scene.tri_v2[g])
+        t = torch.where(valid & (t < best_t[:, None]), t, inf)
+        k = torch.argmin(t, dim=1, keepdim=True)
+        t = t.gather(1, k)[:, 0]
+        better = t < best_t
+        best_t = torch.where(better, t, best_t)
+        best_i = torch.where(better, idx.gather(1, k)[:, 0].to(torch.int32),
+                             best_i)
+        best_u = torch.where(better, u.gather(1, k)[:, 0], best_u)
+        best_v = torch.where(better, v.gather(1, k)[:, 0], best_v)
+        push = enter & ~is_leaf
+        stack[rows, top] = torch.where(push, first + 1, stack[rows, top])
+        nxt = torch.clamp_max(top + 1, depth - 1)
+        stack[rows, nxt] = torch.where(push, first, stack[rows, nxt])
+        sp = torch.where(active, torch.where(push, top + 2, top), sp)
+    return best_t, best_i, best_u, best_v
+
+
+def _bvh_model_hit(scene: MeshScene, b: int, origins, dirs, t_best):
+    """Model ``b`` through its BVH (``_bvh_traverse``); origins/dirs
+    [3, N].  Plain PyTorch on the scene's device: in JAX this route is XLA
+    code, not a kernel.  Refuses a scene whose node bounds are stale
+    (``refit_accel``)."""
+    if scene.stale_node_bounds:
+        raise ValueError(
+            "scene was refit_accel'd after a vertex update: BVH node "
+            "bounds are stale (refit_accel only rebuilds the walk "
+            "tables). Use method='dense'/'walk', or re-upload the scene.")
+    o_m, d_m = transform_rays(scene.frames[b], origins, dirs)
+    n = origins.shape[1]
+    t_best = torch.as_tensor(t_best, dtype=torch.float32,
+                             device=origins.device).expand(n)
+    return _bvh_traverse(scene, scene.model_first_node[b], o_m.T, d_m.T,
+                         t_best)
+
+
 def _tri_record(scene: MeshScene) -> torch.Tensor:
     """Everything shading needs per triangle, one [T, 36] table: v0 v1 v2
     (0-8), uv0 uv1 uv2 (9-14), Kd (15-17), Ks (18-20), Ns (21), use_tex
@@ -430,6 +519,7 @@ def mesh_hit_fn(scene: MeshScene, method: str = "walk",
     keeps the interpolated normal as it is), and the winning triangle's
     material (textured where the scene has an atlas; ``cone`` = (width,
     spread) [N] each picks the mip level from the ray cone's footprint).
+    ``method`` is ``"walk"``, ``"dense"`` or ``"bvh"`` (module docstring).
 
     ``ray_tile > 0`` traces the rays in chunks of that many, one after the
     other (it bounds the dense sweep's working set); the result is the
@@ -454,10 +544,9 @@ def mesh_hit_fn(scene: MeshScene, method: str = "walk",
             plain=plain)
         ray_tile = 0  # the kernel tiles rays itself
     elif method == "dense":
-        model_hit = model_hit_any = None
+        model_hit = _dense_model_hit
     elif method == "bvh":
-        raise NotImplementedError("the BVH stack strategy is not ported: "
-                                  "ROADMAP.md queue A")
+        model_hit = _bvh_model_hit
     else:
         raise ValueError(f"unknown traversal method: {method}")
     record = _tri_record(scene)
@@ -478,7 +567,7 @@ def mesh_hit_fn(scene: MeshScene, method: str = "walk",
                 t, i, u, v = mh(scene, b, origins, dirs, best_t,
                                 any_hit=any_hit, refine=False, t_min=t_min)
             else:
-                t, i, u, v = _dense_model_hit(scene, b, origins, dirs, best_t)
+                t, i, u, v = model_hit(scene, b, origins, dirs, best_t)
             better = (i != MISS) & (t < best_t) & (t > t_min)
             best_t = torch.where(better, t, best_t)
             best_i = torch.where(better, i, best_i)

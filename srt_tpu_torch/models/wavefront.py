@@ -7,8 +7,9 @@ that capability as an API: intersect an ``[N, 3]`` ray batch with a mesh
 scene and get global triangle indices (-1 on a miss), or the full ``Hit``.
 
 ``method`` is ``mesh.mesh_hit_fn``'s: ``"walk"`` (the kernels on CUDA
-tensors, their plain versions on CPU tensors; the port's default) or
-``"dense"``.  Rays go to the scene's device.
+tensors, their plain versions on CPU tensors; the port's default),
+``"dense"`` or ``"bvh"`` (the BVH stack walk, which refuses a
+``refit_accel``-ed scene).  Rays go to the scene's device.
 """
 
 from __future__ import annotations
@@ -42,6 +43,8 @@ def hit_ids(scene: mesh_mod.MeshScene, origins, dirs, t_min: float = 1e-3,
             t, i, _, _ = traversal.model_hit(scene, b, o_t, d_t, best_t)
         elif method == "dense":
             t, i, _, _ = mesh_mod._dense_model_hit(scene, b, o_t, d_t, best_t)
+        elif method == "bvh":
+            t, i, _, _ = mesh_mod._bvh_model_hit(scene, b, o_t, d_t, best_t)
         else:
             raise ValueError(f"unknown traversal method: {method}")
         better = (i != -1) & (t < best_t) & (t > t_min)

@@ -1,7 +1,8 @@
 """Primitive intersection over ray wavefronts (counterpart of
 ``srt_tpu/ops/intersect.py``): spheres (reference ``SphereHit``,
 raytrace_compute.glsl:93-120) and the dense Moller-Trumbore sweep
-(``IntersectsTriangle``, ray_intersects.glsl:61-96)."""
+(``IntersectsTriangle``, ray_intersects.glsl:61-96), and the slab
+test of the BVH stack walk (``IntersectsBox``)."""
 
 from __future__ import annotations
 
@@ -79,23 +80,52 @@ def _cross_last(a, b):
     ], dim=-1)
 
 
+def mt_hits(origins, dirs, v0, v1, v2):
+    """Moller-Trumbore over operands that broadcast against each other,
+    [..., 3] each.  Returns (t with inf for a miss, u, v), the broadcast
+    shape without the last axis.  The dense sweep and the BVH stack walk
+    both evaluate it, so one (ray, triangle) pair gives the same bits on
+    either route."""
+    e1 = v1 - v0
+    e2 = v2 - v0
+    h = _cross_last(dirs, e2)
+    a = (e1 * h).sum(-1)
+    parallel = a.abs() < MT_PARALLEL_EPS
+    f = 1.0 / torch.where(parallel, torch.ones_like(a), a)
+    s = origins - v0
+    u = f * (s * h).sum(-1)
+    q = _cross_last(s, e1)
+    v = f * (dirs * q).sum(-1)
+    t = f * (e2 * q).sum(-1)
+    miss = parallel | (u < 0.0) | (u > 1.0) | (v < 0.0) | (u + v > 1.0) \
+        | (t <= MT_HIT_EPS)
+    return torch.where(miss, torch.full_like(t, float("inf")), t), u, v
+
+
 def moller_trumbore(origins, dirs, v0, v1, v2):
     """Dense ray x triangle Moller-Trumbore.
 
     origins/dirs: [N, 3]; v0/v1/v2: [T, 3].  Returns (t [N, T] with inf
     for a miss, u [N, T], v [N, T]); the caller takes the min over T.
     """
-    e1 = v1 - v0                                             # [T, 3]
-    e2 = v2 - v0
-    h = _cross_last(dirs[:, None, :], e2[None, :, :])        # [N, T, 3]
-    a = (e1[None] * h).sum(-1)                               # [N, T]
-    parallel = a.abs() < MT_PARALLEL_EPS
-    f = 1.0 / torch.where(parallel, torch.ones_like(a), a)
-    s = origins[:, None, :] - v0[None, :, :]                 # [N, T, 3]
-    u = f * (s * h).sum(-1)
-    q = _cross_last(s, e1[None, :, :])                       # [N, T, 3]
-    v = f * (dirs[:, None, :] * q).sum(-1)
-    t = f * (e2[None] * q).sum(-1)
-    miss = parallel | (u < 0.0) | (u > 1.0) | (v < 0.0) | (u + v > 1.0) \
-        | (t <= MT_HIT_EPS)
-    return torch.where(miss, torch.full_like(t, float("inf")), t), u, v
+    return mt_hits(origins[:, None, :], dirs[:, None, :], v0[None],
+                   v1[None], v2[None])
+
+
+def ray_aabb(origins, dirs, bmin, bmax):
+    """Slab test (``IntersectsBox``, ray_intersects.glsl:49-58): the entry
+    distance, the exit distance if the origin is inside, inf on a miss:
+    ``t_near <= t_far ? (t_near >= 0 ? t_near : t_far) : inf``.
+
+    origins/dirs [..., 3]; bmin/bmax broadcastable to them.  A zero
+    direction component divides to +/-inf, and 0 * inf gives NaN;
+    ``torch.minimum`` and ``amax`` propagate it as JAX's ``jnp.minimum``
+    and ``jnp.max`` do, so a NaN lane misses on both sides."""
+    inv = 1.0 / dirs
+    t0 = (bmin - origins) * inv
+    t1 = (bmax - origins) * inv
+    t_near = torch.amax(torch.minimum(t0, t1), dim=-1)
+    t_far = torch.amin(torch.maximum(t0, t1), dim=-1)
+    return torch.where(t_near <= t_far,
+                       torch.where(t_near >= 0.0, t_near, t_far),
+                       torch.full_like(t_near, float("inf")))

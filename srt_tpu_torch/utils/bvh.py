@@ -135,3 +135,17 @@ def bvh_depth(bvh: FlatBVH) -> int:
             depth[child + 1] = depth[ni] + 1
             out = max(out, int(depth[child]) + 1)
     return out
+
+
+def validate_bvh(bvh: FlatBVH, centers: np.ndarray) -> None:
+    """Sanity check: every primitive appears in exactly one leaf.  Raises
+    ``AssertionError`` otherwise, as the JAX package's does."""
+    seen = np.zeros(len(centers), np.int32)
+    for ni in range(bvh.num_nodes):
+        c = int(bvh.node_count[ni])
+        if c > 0:
+            f = int(bvh.node_first[ni])
+            for p in bvh.prim_order[f:f + c]:
+                seen[p] += 1
+    if not np.all(seen == 1):
+        raise AssertionError("BVH leaves do not partition the primitives")

@@ -146,4 +146,4 @@ def test_walk_is_the_default_and_equals_dense_images():
     with pytest.raises(ValueError):
         edge_aware_mesh._primary_winner(ps, t(np.zeros((3, 4), np.float32)),
                                         t(np.ones((3, 4), np.float32)), 1e-3,
-                                        "bvh")
+                                        "octree")

@@ -226,8 +226,9 @@ def test_walk_parsing_and_validation(port_scene):
 def test_port_imports_no_jax():
     """Every port module, the trainer (``optim``), the atlas host code,
     texture sampling, the emitter tables and the app layer (``app``,
-    checkpoints, tonemapping, validation, profiling, image files) among
-    them, imports without JAX, optax or the JAX package."""
+    checkpoints, tonemapping, validation, profiling, image files) and the
+    sharded renders (``parallel``) among them, imports without JAX, optax
+    or the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import srt_tpu_torch\n"
@@ -239,7 +240,8 @@ def test_port_imports_no_jax():
         "for m in ('optim', 'utils.atlas', 'ops.texture',\n"
         "          'models.emitters', 'app', 'utils.checkpoint',\n"
         "          'ops.tonemap', 'utils.validate', 'utils.profiling',\n"
-        "          'utils.image'):\n"
+        "          'utils.image', 'parallel.mesh', 'parallel.render_sharded',\n"
+        "          'parallel.multihost'):\n"
         "    assert 'srt_tpu_torch.' + m in mods, mods\n"
         "bad = [m for m in sys.modules\n"
         "       if m in ('jax', 'optax', 'srt_tpu')\n"
