@@ -124,12 +124,13 @@ Phases, one line each; the last line is printed only when all pass:
    frames of the untextured plan for the ratio.  (c) config11: the lamp
    and receiver cubes (``pad_to=128``: one supercluster), 512x512, 3
    bounces, ``trace_image_compact`` at the full-width schedule with NEE
-   off and on: one replayed frame per arm, then 16 keys (``fold_in`` of
-   ``rng.key(11)``) each: frame ms of both arms and their ratio, the
-   relative luminance std on the emitter-lit pixels as ``bench_suite.py``
-   computes it; overflow 0, finite images, B2 and threefry launched and
-   B1 not, more shadow queries with NEE; a ``make_render_plan`` with
-   ``nee=True`` renders one frame with overflow 0.  (d) 64x64 textured
+   off and on: one replayed frame per arm, then 16 keys
+   (``rng.split(rng.key(11), 16)``, JAX's ``jax.random.split``) each:
+   frame ms of both arms and their ratio, the relative luminance std on
+   the emitter-lit pixels as ``bench_suite.py`` computes it; overflow 0,
+   finite images, B2 and threefry launched and B1 not, more shadow
+   queries with NEE; a ``make_render_plan`` with ``nee=True`` renders
+   one frame with overflow 0.  (d) 64x64 textured
    (``uv_sphere(40, 60)``) and NEE frames on the card against the port's
    CPU run from the same key: equal stats, the image criterion of 9a.
    (e) d mean / d atlas (``quad_pack=False``) and d mean / d
@@ -219,6 +220,20 @@ Phases, one line each; the last line is printed only when all pass:
    primaries: the BVH ids equal the dense ids; the ms of one BVH, dense
    and walk call each; a ``refit_accel``-ed scene refuses the BVH route.  The
    phase prints its seconds.
+15. The port's entry points (``srt_tpu_torch.bench``, ``bench_suite``,
+   ``tools``) in this process at the card's full sizes.  (a)
+   ``bench.run`` (``bench.main``'s body: 1024x1024, 10 timed frames):
+   its JSON line, overflow 0, a finite rate, B1-B4 and threefry
+   launched, and its plan's frame for ``rng.key(1)`` equal bit for bit to
+   phase 4's plan frame for that key.  (b) ``bench_suite.main`` for each
+   of configs 1-11: every line it prints; no ``FAILED`` line, finite
+   values, config1's oracle flag (max |err| < 2e-3 against
+   ``models/reference_cpu.py``) and the flags of config6, config8 and
+   config10 at 1.0, and each config's kernels exactly those of its path
+   (config8: the streamed walks B2s and B4s).  (c) ``render_demo`` at
+   512x512, spp 4, into a temporary directory (both images written,
+   finite, not flat) and ``interactive_session``'s cases (their JSON
+   lines, fps finite).  The phase prints its seconds.
 
 Each path (the headline frames, the config8 frames, the counter run, the
 binned frames, the pg frames, the scan frames of phase 9, the backward
@@ -226,7 +241,8 @@ passes and the optimizer steps of phase 10, the config9, textured-plan
 and config11 frames of phase 11, the session frames of phase 12,
 config10a's optimizer steps and the global-search frames of phase 13, the
 one-shard config5 and config7 frames, the sharded walk frames and each
-rank's walk frame in the world of 2 of phase 14) is driven with
+rank's walk frame in the world of 2 of phase 14, ``bench``'s frames, each
+suite config and each tool of phase 15) is driven with
 the launch counts set to 0 just before it and read just after; every
 kernel must be launched by its path.  Each replayed B4/B4s launch also prints its groups, the clusters
 its lists name and the split P its wrapper chose; each B7 launch its
@@ -337,11 +353,10 @@ GRAD_TOL = 1e-3
 # config9's image size, map size, mip levels and timed frames a variant;
 # the textured plan's size; config11's image size and keys an arm; the
 # card-vs-CPU parity frames (uv_sphere rows, cols; image size).
-CONFIG9_SIZE, CONFIG9_MAP, CONFIG9_MIPS, CONFIG9_FRAMES = 1024, 512, 6, 3
+CONFIG9_SIZE, CONFIG9_FRAMES = 1024, 3
 TEX_PLAN_SIZE = 1024
 CONFIG11_SIZE, CONFIG11_KEYS = 512, 16
 PARITY11_SPHERE, PARITY11_SIZE = (40, 60), 64
-CONFIG11_CAMERA = dict(origin=(0.0, 3.0, 2.5), look_at=(0.0, 0.6, 0.0))
 # Phase 12 (the app layer): the headline session's untimed and timed
 # frames, the pose whose probe sees only sky (the session's camera looks
 # down -z from its origin, away from the sphere), the card-vs-CPU
@@ -367,6 +382,11 @@ EA_SPHERE_SIZE = 256
 CONFIG5_SIZE, CONFIG7_SIZE = 256, 128
 SHARD_WALK_SIZE, WORLD2_WALK_SIZE = 1024, 256
 BVH_SIZE, WORLD2_TIMEOUT = 128, 300.0
+# Phase 15 (the entry points): ``render_demo``'s image size and samples,
+# ``interactive_session``'s headline sizes and timed frames a case (the
+# tools' defaults).
+DEMO_SIZE, DEMO_SPP = 512, 4
+SESSION_SIZES, SESSION_CASE_FRAMES = (1024, 512, 256), 12
 # Rays of the few-group B4/B4s cases (8 groups at G = 32), and the list
 # entries B4 stages in shared memory (LIST_SH, csrc/pgwalk2.cu).
 FEW_RAYS, LIST_STAGED = 256, 256
@@ -1863,23 +1883,6 @@ def grad_of(loss, params, key):
     return [x.grad for x in leaves]
 
 
-def mesh_loss(scene, lights, cam, cfg, method="walk", ray_tile=0):
-    """config6's loss (``bench_suite.py``): the image mean of
-    ``render(mesh_hit_fn(with_positions(scene with mat_diffuse),
-    positions))``, as ``image`` (params, key) -> [H, W, 3] and ``loss``."""
-    from srt_tpu_torch.models import mesh, pathtracer
-
-    def image(params, key):
-        diffuse, positions = params
-        s = mesh.with_positions(
-            dataclasses.replace(scene, mat_diffuse=diffuse), positions)
-        return pathtracer.render(
-            mesh.mesh_hit_fn(s, method=method, ray_tile=ray_tile), lights,
-            cam, cfg, key)
-
-    return image, lambda params, key: image(params, key).mean()
-
-
 def rel_err(a, b):
     """The largest |x - y| / |y| (L2 norms) over pairs of tensors (x in a,
     y in b), on the host."""
@@ -1930,6 +1933,7 @@ def phase_grad(scene, cases, profile, dev):
     import torch
 
     from srt_tpu_torch import optim
+    from srt_tpu_torch.bench_suite import mesh_loss
     from srt_tpu_torch.config import CameraConfig, RenderConfig
     from srt_tpu_torch.models import mesh, pathtracer
     from srt_tpu_torch.ops import rng
@@ -2155,109 +2159,6 @@ def phase_grad(scene, cases, profile, dev):
           flush=True)
 
 
-def config9_map():
-    """``bench_suite.py`` config9's procedural diffuse map: a checker of 16
-    squares a side times two gradients, ``CONFIG9_MAP`` texels square."""
-    import numpy as np
-    yy, xx = np.mgrid[0:CONFIG9_MAP, 0:CONFIG9_MAP].astype(
-        np.float32) / CONFIG9_MAP
-    checker = (np.floor(xx * 16) + np.floor(yy * 16)) % 2
-    return np.stack([0.2 + 0.6 * checker, 0.3 + 0.5 * yy, 0.8 - 0.5 * xx],
-                    axis=-1).astype(np.float32)
-
-
-def textured_scene(flat, dev, quad_pack=True):
-    """config9's textured upload of ``flat``: the map's mip atlas
-    (``CONFIG9_MIPS`` levels), ``mip_lod_scale`` = 512 / (2 pi 2) texels
-    per world unit, every material textured with texture 0 (set after
-    the upload, as ``bench_suite.py`` does)."""
-    import numpy as np
-    import torch
-
-    from srt_tpu_torch.models import mesh
-    from srt_tpu_torch.utils.atlas import pack_atlas
-    at = pack_atlas([config9_map()], mip_levels=CONFIG9_MIPS)
-    s = mesh.upload(flat, dev, atlas=at.image, atlas_rects=at.rects,
-                    atlas_mip_rects=at.mip_rects,
-                    mip_lod_scale=512.0 / (2.0 * np.pi * 2.0),
-                    quad_pack=quad_pack)
-    return dataclasses.replace(
-        s, mat_use_texture=torch.ones_like(s.mat_use_texture),
-        mat_tex_index=torch.zeros_like(s.mat_tex_index))
-
-
-def config9_run(scene, lights, size):
-    """``bench_suite.py`` config9's ``make_run``: primaries from the
-    stream's first two slots, then ``trace_wavefront`` through
-    ``mesh_hit_fn(scene, method="walk", ray_tile=4096)``, 4 bounces,
-    bounce re-sort, ray cones.  Returns (``run(key) -> (radiance [3, N],
-    stats [4, 2])``, the hit fn)."""
-    from srt_tpu_torch.camera import derive_viewport, generate_rays
-    from srt_tpu_torch.config import CameraConfig, RenderConfig
-    from srt_tpu_torch.models import mesh, pathtracer
-    from srt_tpu_torch.ops import rng
-
-    cam = CameraConfig(width=size, height=size, **HEADLINE_CAMERA)
-    cfg = RenderConfig(max_depth=4, rr_bounces=0, spp=1, sort_bounces=True,
-                       ray_cones=True)
-    hit = mesh.mesh_hit_fn(scene, method="walk", ray_tile=4096)
-    n = size * size
-
-    def run(key):
-        stream = rng.KeyStream(key, n)
-        vp = derive_viewport(cam, device=key.device)
-        o, d = generate_rays(vp, size, size, stream.take(2))
-        return pathtracer.trace_wavefront(hit, lights, o, d, stream, cfg,
-                                          return_stats=True)
-
-    return run, hit
-
-
-def config11_scene(dev):
-    """``bench_suite.py`` config11's scene on ``dev``: the lamp cube (size
-    0.3, Ke (40, 32, 24)) beside and above the receiver cube, flattened
-    with ``pad_to=128`` (256 triangles: one supercluster), and its one dim
-    point light."""
-    import torch
-
-    from srt_tpu_torch.models import mesh
-    from srt_tpu_torch.scene import Lights
-    from srt_tpu_torch.utils import procgen
-    from srt_tpu_torch.utils.flatten import flatten_models
-    from srt_tpu_torch.utils.obj_loader import MaterialDef
-    lamp = procgen.cube(size=0.3, center=(0.9, 1.8, 0.6),
-                        material=MaterialDef(diffuse=(0.0, 0.0, 0.0),
-                                             specular=(0.0, 0.0, 0.0),
-                                             emissive=(40.0, 32.0, 24.0)))
-    recv = procgen.cube(size=2.2, center=(0.0, -0.4, 0.0),
-                        material=MaterialDef(diffuse=(0.7, 0.7, 0.7),
-                                             specular=(0.2, 0.2, 0.2)))
-    scene = mesh.upload(flatten_models([recv, lamp], pad_to=128), dev)
-    dim = Lights(position=torch.tensor([[0.0, 500.0, 0.0]], device=dev),
-                 color=torch.tensor([[1.0, 1.0, 1.0]], device=dev),
-                 intensity=torch.tensor([1e-6], device=dev))
-    return scene, dim
-
-
-def config11_frame(scene, dim, em, size, nee):
-    """config11's frame: ``trace_image_compact`` at the full-width
-    schedule (n, n, n), 3 bounces, bounce re-sort, the all-specular
-    shortcut, NEE toward ``em`` when ``nee``; ``frame(key) -> (image,
-    stats, overflow)``."""
-    from srt_tpu_torch.config import CameraConfig, RenderConfig
-    from srt_tpu_torch.models import mesh
-    from srt_tpu_torch.models.wavefront_compact import trace_image_compact
-    from srt_tpu_torch.ops import rng
-    cam = CameraConfig(width=size, height=size, **CONFIG11_CAMERA)
-    cfg = RenderConfig(max_depth=3, rr_bounces=0, nee=nee, sort_bounces=True,
-                       uniform_use_spec=True)
-    hit = mesh.mesh_hit_fn(scene, method="walk")
-    n = size * size
-    return lambda key: trace_image_compact(
-        hit, dim, cam, cfg, rng.KeyStream(key, n), (n, n, n),
-        return_stats=True, emitters=em if nee else None)
-
-
 def phase_textures_nee(scene, cases, profile, dev):
     """Phase 11: textures and next-event estimation (``bench_suite.py``'s
     config9 and config11), the textured render plan, card-vs-CPU parity
@@ -2265,8 +2166,12 @@ def phase_textures_nee(scene, cases, profile, dev):
     import numpy as np
     import torch
 
+    from srt_tpu_torch.bench_suite import (CONFIG11_CAMERA, config9_run,
+                                           config9_scene, config11_frame,
+                                           config11_scene)
     from srt_tpu_torch.camera import derive_viewport, generate_rays
     from srt_tpu_torch.config import CameraConfig, RenderConfig
+    from srt_tpu_torch.models import mesh
     from srt_tpu_torch.models.emitters import (build_emitters,
                                                emitter_indices,
                                                scene_emitters)
@@ -2284,9 +2189,9 @@ def phase_textures_nee(scene, cases, profile, dev):
     # (a) config9: the headline mesh textured, through the scan.
     size = CONFIG9_SIZE
     t0 = time.perf_counter()
-    tex = textured_scene(flatten_models([uv_sphere(*HEADLINE_SPHERE,
-                                                   radius=2.0)],
-                                        pad_to=128), dev)
+    tex = config9_scene(flatten_models([uv_sphere(*HEADLINE_SPHERE,
+                                                  radius=2.0)],
+                                       pad_to=128), dev)
     check(all(x.is_cuda for x in (tex.atlas, tex.atlas_rects,
                                   tex.atlas_mip_rects, tex.atlas_quad)),
           "config9: the atlas tables are not on the card")
@@ -2388,15 +2293,16 @@ def phase_textures_nee(scene, cases, profile, dev):
 
     # (c) config11: NEE off and on, the same hit fn and driver.
     scene11, dim = config11_scene(dev)
+    hit11 = mesh.mesh_hit_fn(scene11, method="walk")
     em = scene_emitters(scene11)
     check(em is not None and em.v0.shape[0] == 12
           and all(x.is_cuda for x in em), "config11: emitter tables")
     size = CONFIG11_SIZE
-    keys = [rng.fold_in(rng.key(11, dev), i) for i in range(CONFIG11_KEYS)]
+    keys = rng.split(rng.key(11, dev), CONFIG11_KEYS)
     arms = {}
     for nee in (False, True):
         tag = "11c nee" if nee else "11c hit-only"
-        frame = config11_frame(scene11, dim, em, size, nee)
+        frame = config11_frame(hit11, dim, em, size, nee)
         first = []
         launched = replay_frame(tag, lambda: first.append(frame(keys[0])),
                                 cases)
@@ -2441,7 +2347,7 @@ def phase_textures_nee(scene, cases, profile, dev):
           f"queries {shadow[True]} vs {shadow[False]}  [{cases.card}]",
           flush=True)
     if profile:
-        profile_frame(lambda: config11_frame(scene11, dim, em, size, True)(
+        profile_frame(lambda: config11_frame(hit11, dim, em, size, True)(
             rng.key(99, dev)), f"config11 NEE {size}x{size}",
             arms[True][0], profile)
     cam11 = CameraConfig(width=size, height=size, **CONFIG11_CAMERA)
@@ -2460,11 +2366,12 @@ def phase_textures_nee(scene, cases, profile, dev):
     size = PARITY11_SIZE
     got = {}
     for d_ in (dev, cpu):
-        run, _ = config9_run(textured_scene(small_flat, d_),
+        run, _ = config9_run(config9_scene(small_flat, d_),
                              model_scene_lights(d_), size)
         color, st = run(rng.key(5, d_))
         sc, dm = config11_scene(d_)
-        img11, st11, _ = config11_frame(sc, dm, scene_emitters(sc), size,
+        img11, st11, _ = config11_frame(mesh.mesh_hit_fn(sc), dm,
+                                        scene_emitters(sc), size,
                                         True)(rng.key(6, d_))
         got[d_.type] = ((color.T.reshape(size, size, 3).cpu(), st.cpu()),
                         (img11.cpu(), st11.cpu()))
@@ -2482,7 +2389,7 @@ def phase_textures_nee(scene, cases, profile, dev):
               f"[{cases.card}]", flush=True)
 
     # (e) gradients on the card: the atlas (no quad table), the emission.
-    tex_g = textured_scene(small_flat, dev, quad_pack=False)
+    tex_g = config9_scene(small_flat, dev, quad_pack=False)
     atlas = tex_g.atlas.clone().requires_grad_(True)
     run, _ = config9_run(dataclasses.replace(tex_g, atlas=atlas), lights,
                          size)
@@ -2492,8 +2399,8 @@ def phase_textures_nee(scene, cases, profile, dev):
     ke = sc.mat_emissive.clone().requires_grad_(True)
     sc = dataclasses.replace(sc, mat_emissive=ke)
     em_g = build_emitters(sc, emitter_indices(sc))
-    config11_frame(sc, dm, em_g, size, True)(rng.key(6, dev))[0].mean(
-    ).backward()
+    config11_frame(mesh.mesh_hit_fn(sc), dm, em_g, size, True)(
+        rng.key(6, dev))[0].mean().backward()
     peak_k = check_grads("d mean / d mat_emissive", [ke.grad])
     print(f"[11e] gradients on the card: d mean / d atlas max |g| "
           f"{peak_a[0]:.6e} ({int((atlas.grad != 0).sum())} texels), d mean "
@@ -2537,6 +2444,7 @@ def phase_app(scene, cases, profile, dev):
     import torch
 
     from srt_tpu_torch import app, optim
+    from srt_tpu_torch.bench_suite import mesh_loss
     from srt_tpu_torch.config import CameraConfig, RenderConfig
     from srt_tpu_torch.models.fastpath import make_render_plan
     from srt_tpu_torch.models.wavefront_compact import GRANULE
@@ -3079,23 +2987,6 @@ def sharded_walk(scene, lights, mesh, size, key, multihost=False):
     return render_sharded(walk, scene, lights, cam, cfg, key, mesh)
 
 
-def config7_case(dev, size):
-    """config7 (``bench_suite.py:278-315``): ``uv_sphere(24, 36)``,
-    ``pad_to=1``, the dense sweep, (0, 1, 5) toward the origin, size x
-    size, spp 2, 2 + 1 bounces: (hit fn maker, scene, lights, cam,
-    cfg)."""
-    from srt_tpu_torch.config import CameraConfig, RenderConfig
-    from srt_tpu_torch.models import mesh
-    from srt_tpu_torch.scene import model_scene_lights
-    from srt_tpu_torch.utils.flatten import flatten_models
-    from srt_tpu_torch.utils.procgen import uv_sphere
-    scene = mesh.upload(flatten_models([uv_sphere(24, 36)], pad_to=1), dev)
-    return ((lambda s: mesh.mesh_hit_fn(s, method="dense")), scene,
-            model_scene_lights(dev),
-            CameraConfig(width=size, height=size, **HEADLINE_CAMERA),
-            RenderConfig(max_depth=2, rr_bounces=1, spp=2))
-
-
 def config7_grads(c7, mesh, key):
     """d mean(image^2) / d (mat_diffuse, positions) of config7 through
     ``render_sharded`` (``tests/test_parallel.py:171-205``'s train step):
@@ -3152,6 +3043,7 @@ def sharded_rank(rank, world, device, sphere, walk_size, c7_size):
     import torch
     import torch.distributed as dist
 
+    from srt_tpu_torch.bench_suite import config7_case
     from srt_tpu_torch.ops import rng
     from srt_tpu_torch.ops import traversal as tr
     from srt_tpu_torch.parallel import device_mesh
@@ -3206,16 +3098,16 @@ def phase_sharded(scene, cases, profile, dev):
     import torch
     import torch.distributed as dist
 
+    from srt_tpu_torch.bench_suite import config5_case, config7_case
     from srt_tpu_torch.camera import derive_viewport, generate_rays
-    from srt_tpu_torch.config import CameraConfig, RenderConfig
+    from srt_tpu_torch.config import CameraConfig
     from srt_tpu_torch.models import mesh as mesh_mod
-    from srt_tpu_torch.models import pathtracer, wavefront
+    from srt_tpu_torch.models import wavefront
     from srt_tpu_torch.ops import rng
     from srt_tpu_torch.ops import traversal as tr
     from srt_tpu_torch.parallel import device_mesh
     from srt_tpu_torch.parallel.launch import spawn_world
-    from srt_tpu_torch.scene import (default_sphere_scene,
-                                     model_scene_lights, sphere_scene_lights)
+    from srt_tpu_torch.scene import model_scene_lights
 
     t_phase = time.perf_counter()
     card = cases.card
@@ -3226,10 +3118,7 @@ def phase_sharded(scene, cases, profile, dev):
     try:
         # (a) config5 and config7, one shard: Mpaths/s as bench_suite.py
         # counts them, and the image against the unsharded trace.
-        c5 = (pathtracer.spheres_hit_fn, default_sphere_scene(dev),
-              sphere_scene_lights(dev),
-              CameraConfig(width=CONFIG5_SIZE, height=CONFIG5_SIZE),
-              RenderConfig(max_depth=3, rr_bounces=0, spp=2))
+        c5 = config5_case(dev, CONFIG5_SIZE)
         c7 = config7_case(dev, CONFIG7_SIZE)
         key0 = rng.key(0, dev)
         for label, case in (("config5", c5), ("config7", c7)):
@@ -3365,6 +3254,127 @@ def phase_sharded(scene, cases, profile, dev):
           flush=True)
 
 
+# The kernels each ``bench_suite`` config launches on the card (phase 15),
+# and the configs whose ``vs_baseline`` is a correctness flag.  config1
+# injects its uniforms (no kernel); configs 3 and 11 render one-super
+# scenes (no B1; config10's Rubik half too, its headline half launches B1).
+SUITE_PATHS = {"1": (), "2": SPHERE_PATH, "3": ONE_SUPER_PATH,
+               "4": HEADLINE_PATH, "5": SPHERE_PATH, "6": SCAN_MESH_PATH,
+               "7": SPHERE_PATH, "8": CONFIG8_PATH, "9": SCAN_MESH_PATH,
+               "10": SCAN_MESH_PATH, "11": ONE_SUPER_PATH}
+SUITE_FLAGGED = ("1", "6", "8", "10")
+
+
+def kernel_launches():
+    """The nonzero kernel launch counts since the last reset."""
+    from srt_tpu_torch.ops import traversal as tr
+    return {k: v for k, v in tr.launch_counts.items() if v and k in KERNELS}
+
+
+def phase_entry_points(plan, cases, dev):
+    """Phase 15: ``bench``, ``bench_suite`` and the tools of the port,
+    in this process, at the card's full sizes; ``plan`` is phase 4's."""
+    import io
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from srt_tpu_torch import bench, bench_suite
+    from srt_tpu_torch.ops import rng
+    from srt_tpu_torch.ops import traversal as tr
+    from srt_tpu_torch.tools import interactive_session, render_demo
+
+    t_phase = time.perf_counter()
+    card = cases.card
+    check(not os.environ.get("SRT_SUITE_SMALL"),
+          "SRT_SUITE_SMALL is set: phase 15 runs the card's full sizes")
+
+    # (a) bench: its line, and its plan's frame against phase 4's.
+    t0 = time.perf_counter()
+    tr.reset_launch_counts()
+    record, bench_plan, rays = bench.run(dev)
+    found = path_launches("bench", HEADLINE_PATH, kernel_launches())
+    secs = time.perf_counter() - t0
+    print(f"[15a] {json.dumps(record)}", flush=True)
+    check(math.isfinite(record["value"]) and record["value"] > 0,
+          f"bench: rate {record['value']}")
+    key1 = rng.key(1, dev)
+    mine, ref = bench_plan.render(key1), plan.render(key1)
+    check(all(torch.equal(a, b) for a, b in zip(mine, ref)),
+          "bench: its plan's frame for key 1 differs from phase 4's")
+    print(f"[15a] bench: {secs:.1f} s, schedule {bench_plan.schedule}, "
+          f"{rays} rays a frame, overflow 0; its frame for key 1 equals "
+          f"phase 4's plan frame bit for bit; launches in 11 frames "
+          f"{found}  [{card}]", flush=True)
+    del bench_plan, mine, ref
+
+    # (b) bench_suite: each config through main(), its lines and kernels.
+    for p in sorted(bench_suite.ALL, key=int):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        tr.reset_launch_counts()
+        with contextlib.redirect_stdout(buf):
+            rc = bench_suite.main([p, "--device", str(dev)])
+        synchronize()
+        secs = time.perf_counter() - t0
+        launches = kernel_launches()
+        lines = [json.loads(ln) for ln in buf.getvalue().splitlines()
+                 if ln.startswith("{")]
+        for rec in lines:
+            print(f"[15b] {json.dumps(rec)}", flush=True)
+        check(rc == 0 and lines
+              and not any("FAILED" in r["metric"] for r in lines),
+              f"config{p}: exit {rc}, lines {lines}")
+        check(all(math.isfinite(r["value"]) for r in lines),
+              f"config{p}: a value is not finite")
+        if p in SUITE_FLAGGED:
+            check(all(r["vs_baseline"] == 1.0 for r in lines),
+                  f"config{p}: a correctness flag is not 1.0")
+        check(set(launches) == set(SUITE_PATHS[p]),
+              f"config{p} launched {sorted(launches)}, its path is "
+              f"{sorted(SUITE_PATHS[p])}")
+        print(f"[15b] config{p}: {len(lines)} lines in {secs:.1f} s, "
+              f"launches {launches}  [{card}]", flush=True)
+
+    # (c) the tools.
+    t0 = time.perf_counter()
+    tr.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        images = render_demo.run(tmp, DEMO_SIZE, DEMO_SPP, dev)
+        for name, (path, srgb) in images.items():
+            check(os.path.getsize(path) > 0, f"render_demo: {path} empty")
+            check(srgb.shape == (DEMO_SIZE, DEMO_SIZE, 3)
+                  and bool(np.isfinite(srgb).all()) and srgb.std() > 0.0,
+                  f"render_demo: {name} is not a finite, varied image")
+            print(f"[15c] render_demo {name}: {os.path.basename(path)}, "
+                  f"sRGB mean {srgb.mean():.6f}, std {srgb.std():.6f}",
+                  flush=True)
+    found = path_launches("render_demo", SCAN_MESH_PATH, kernel_launches())
+    print(f"[15c] render_demo {DEMO_SIZE}x{DEMO_SIZE}, spp {DEMO_SPP}: "
+          f"{time.perf_counter() - t0:.1f} s, launches {found}  [{card}]",
+          flush=True)
+    t0 = time.perf_counter()
+    tr.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        records = interactive_session.run(dev, SESSION_SIZES,
+                                          SESSION_CASE_FRAMES)
+    found = path_launches("interactive_session", HEADLINE_PATH,
+                          kernel_launches())
+    for rec in records:
+        print(f"[15c] {json.dumps(rec)}", flush=True)
+        check(all(math.isfinite(rec[k]) and rec[k] > 0
+                  for k in ("fps", "fps_after_move")),
+              f"interactive_session {rec['case']}: fps")
+    print(f"[15c] interactive_session: {len(records)} cases in "
+          f"{time.perf_counter() - t0:.1f} s, launches {found}  [{card}]",
+          flush=True)
+    print(f"[15] entry-point phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="PATH")
@@ -3438,6 +3448,7 @@ def main(argv=None) -> int:
     phase_app(scene, cases, args.profile, dev)
     phase_edge_aware(scene, cases, args.profile, dev)
     phase_sharded(scene, cases, args.profile, dev)
+    phase_entry_points(plan, cases, dev)
 
     # Each kernel's first case, or its LINE_CASES case: device ms, plain ms
     # and bound of one call.  No single PyTorch call computes a cull, a
@@ -3455,7 +3466,7 @@ def main(argv=None) -> int:
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
             library_ms=None))
-    print(f"[15] all phases passed in {time.perf_counter() - t_start:.1f} s",
+    print(f"[16] all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

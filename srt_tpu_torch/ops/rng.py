@@ -5,9 +5,9 @@ package's: pixel jitter (2 slots) first, then per bounce
 ``[ris_idx x L | ris_sel x L | lobe | rr | diff_r1 | diff_r2 | h_r1 | h_r2]``
 (``2*L + 6`` slots).
 
-* ``KeyStream`` draws from JAX's threefry lattice, bit for bit: ``key``
-  and ``fold_in`` give the key data of ``jax.random.key`` /
-  ``jax.random.fold_in``, and a ``SlotBlock`` gives
+* ``KeyStream`` draws from JAX's threefry lattice, bit for bit: ``key``,
+  ``fold_in`` and ``split`` give the key data of ``jax.random.key`` /
+  ``jax.random.fold_in`` / ``jax.random.split``, and a ``SlotBlock`` gives
   ``jax.random.uniform(key, (k, n))`` under the partitionable threefry
   layout (``jax_threefry_partitionable=True``, JAX's default): element j
   is ``w0 ^ w1`` of ``threefry2x32(key, (0, j))``, mapped to a float as
@@ -131,6 +131,15 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     if not 0 <= int(data) < 2 ** 32:
         raise ValueError(f"fold_in data {data} out of bounds for uint32")
     return threefry(key, int(data), 1, 1, raw=True)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """The key data of ``jax.random.split(key, num)``: [num, 2] int64, row
+    i both words of ``threefry2x32(key, (0, i))``, which is ``fold_in(key,
+    i)``.  That is JAX's split under the partitionable threefry layout
+    (``jax_threefry_partitionable=True``, its default); the other layout
+    splits to other bits."""
+    return torch.stack([fold_in(key, i) for i in range(num)])
 
 
 class SlotBlock:

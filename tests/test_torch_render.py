@@ -226,9 +226,10 @@ def test_walk_parsing_and_validation(port_scene):
 def test_port_imports_no_jax():
     """Every port module, the trainer (``optim``), the atlas host code,
     texture sampling, the emitter tables and the app layer (``app``,
-    checkpoints, tonemapping, validation, profiling, image files) and the
-    sharded renders (``parallel``) among them, imports without JAX, optax
-    or the JAX package."""
+    checkpoints, tonemapping, validation, profiling, image files), the
+    sharded renders (``parallel``) and the entry points (the numpy oracle,
+    ``bench``, ``bench_suite``, the tools) among them, imports without
+    JAX, optax or the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import srt_tpu_torch\n"
@@ -241,7 +242,9 @@ def test_port_imports_no_jax():
         "          'models.emitters', 'app', 'utils.checkpoint',\n"
         "          'ops.tonemap', 'utils.validate', 'utils.profiling',\n"
         "          'utils.image', 'parallel.mesh', 'parallel.render_sharded',\n"
-        "          'parallel.multihost'):\n"
+        "          'parallel.multihost', 'models.reference_cpu', 'bench',\n"
+        "          'bench_suite', 'tools.render_demo',\n"
+        "          'tools.interactive_session'):\n"
         "    assert 'srt_tpu_torch.' + m in mods, mods\n"
         "bad = [m for m in sys.modules\n"
         "       if m in ('jax', 'optax', 'srt_tpu')\n"
