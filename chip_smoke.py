@@ -234,6 +234,21 @@ Phases, one line each; the last line is printed only when all pass:
    512x512, spp 4, into a temporary directory (both images written,
    finite, not flat) and ``interactive_session``'s cases (their JSON
    lines, fps finite).  The phase prints its seconds.
+16. The measurement tools (``srt_tpu_torch.tools``).  (a) K1
+   (``add_one``, one block on [8, 128]) and K2 (``occupancy_cf``: 262,144
+   rays component-first, 10 boxes, tile 512, g = 8 and 64 tiles a block,
+   on micro_occ's own normal draws and on ``mixed_data``, whose share of
+   ones must lie in [0.2, 0.8]) against their plain versions, equal
+   exactly; K1's library yardstick is torch's ``x + 1.0``.  (b)
+   ``micro_occ.run`` (the path of K1 and K2).  (c) Every other tool's
+   ``run()`` at the card's sizes (1024x1024 headline frames on phase 3's
+   scene, 512x512 Rubik frames, ``parity_smoke`` on phase 3's and phase
+   6's scenes), reps 3: each tool's printout, its records' times finite
+   and positive, its path's kernels launched, every ``parity_smoke`` case
+   passing JAX's thresholds, ``eval_counts``' fit, device operations in
+   both profiled frames, and ``parse_trace`` agreeing with
+   ``profile_fastpath``'s sum.  The phase prints its seconds.
+17. The summary: the seconds of all phases, then the ``kernels`` line.
 
 Each path (the headline frames, the config8 frames, the counter run, the
 binned frames, the pg frames, the scan frames of phase 9, the backward
@@ -242,7 +257,8 @@ and config11 frames of phase 11, the session frames of phase 12,
 config10a's optimizer steps and the global-search frames of phase 13, the
 one-shard config5 and config7 frames, the sharded walk frames and each
 rank's walk frame in the world of 2 of phase 14, ``bench``'s frames, each
-suite config and each tool of phase 15) is driven with
+suite config and each tool of phase 15, each tool of phase 16) is
+driven with
 the launch counts set to 0 just before it and read just after; every
 kernel must be launched by its path.  Each replayed B4/B4s launch also prints its groups, the clusters
 its lists name and the split P its wrapper chose; each B7 launch its
@@ -310,6 +326,11 @@ KERNELS = {
     "cull_gmask": ("traversal", "srt_tpu_torch/csrc/cull_gmask.cu",
                    f"{TP}:436"),
     "pgwalk": ("traversal", "srt_tpu_torch/csrc/pgwalk.cu", f"{TP}:937"),
+    # The two kernels of JAX's launch-cost micro-benchmark (phase 16).
+    "add_one": ("micro_occ", "srt_tpu_torch/csrc/micro_occ.cu",
+                "tools/micro_occ.py:45"),
+    "occupancy_cf": ("micro_occ", "srt_tpu_torch/csrc/micro_occ.cu",
+                     "tools/micro_occ.py:76"),
 }
 # The path whose run gives each kernel's launch count.
 HEADLINE_PATH = ("cull", "intersect", "cull_pg2", "pgwalk2", "threefry")
@@ -387,6 +408,34 @@ BVH_SIZE, WORLD2_TIMEOUT = 128, 300.0
 # tools' defaults).
 DEMO_SIZE, DEMO_SPP = 512, 4
 SESSION_SIZES, SESSION_CASE_FRAMES = (1024, 512, 256), 12
+# Phase 16 (the measurement tools): K2's rays, boxes, tile and tiles a
+# block (micro_occ's), the tools' headline and Rubik frame sizes and
+# repetitions, parity_smoke's (camera side, random rays) a scene (its own
+# defaults when None).
+OCC_N, OCC_BOXES, OCC_TILE, OCC_GROUPS = 262144, 10, 512, (8, 64)
+TOOLS_SIZE, TOOLS_RUBIK_SIZE, TOOLS_REPS = 1024, 512, 3
+PARITY_SIZES = None
+# The kernels each tool's run() must launch on the card (phase 16); the
+# Rubik grid is one super, so its walks launch no B1.
+RUBIK_PATH = ("intersect", "threefry")
+TOOL_PATHS = {
+    "micro_occ": ("add_one", "occupancy_cf", "cull"),
+    "wavefronts": SCAN_MESH_PATH,
+    "eval_counts": SCAN_MESH_PATH + ("intersect_count",),
+    "profile_bounces": SCAN_MESH_PATH,
+    "profile_breakdown": RUBIK_PATH + ("cull",),
+    "profile_bench": RUBIK_PATH + ("cull",),
+    "profile_frame": RUBIK_PATH,
+    "profile_scan": RUBIK_PATH,
+    "profile_fastpath": HEADLINE_PATH,
+    "profile_trace": RUBIK_PATH,
+    "parity_smoke": ("cull", "intersect", "cull_pg2", "pgwalk2",
+                     "intersect_stream", "pgwalk2_stream"),
+    "micro_bounce_real": SCAN_MESH_PATH,
+    "micro_pg2_split": SCAN_MESH_PATH + ("cull_pg2", "pgwalk2"),
+    "micro_pgwalk": SCAN_MESH_PATH + ("cull_pg2", "pgwalk2", "cull_gmask",
+                                      "pgwalk"),
+}
 # Rays of the few-group B4/B4s cases (8 groups at G = 32), and the list
 # entries B4 stages in shared memory (LIST_SH, csrc/pgwalk2.cu).
 FEW_RAYS, LIST_STAGED = 256, 256
@@ -404,7 +453,7 @@ FLOAT_OUTPUTS = {"cull": (1,), "intersect": (0,), "cull_pg2": (),
                  "pgwalk2": (0,), "intersect_stream": (0,),
                  "pgwalk2_stream": (0,), "intersect_count": (0,),
                  "threefry": (0,), "cull_perray": (0,), "cull_gmask": (),
-                 "pgwalk": (0,)}
+                 "pgwalk": (0,), "add_one": (0,), "occupancy_cf": ()}
 # Bounds: NVIDIA's H100 SXM data-sheet peaks and the
 # operations per unit of work, read from the CUDA sources: a slab test
 # (traversal_common.cuh ``slab``: 6 subtractions, 6 multiplies, 11
@@ -447,7 +496,9 @@ def check(cond, msg):
 
 def kernel_module(name):
     from srt_tpu_torch.ops import rng, traversal
-    return {"traversal": traversal, "rng": rng}[KERNELS[name][0]]
+    from srt_tpu_torch.tools import micro_occ
+    return {"traversal": traversal, "rng": rng,
+            "micro_occ": micro_occ}[KERNELS[name][0]]
 
 
 def as_tuple(out):
@@ -793,6 +844,15 @@ def bound_of(name, args, out):
     if name == "threefry":
         ops = out[0].numel() * max(THREEFRY_ALU_OPS, THREEFRY_FMA_OPS)
         peak = PEAK_INT32_OPS_S
+    elif name == "add_one":
+        ops = out[0].numel()
+    elif name == "occupancy_cf":
+        # The 7 used rows of rays_cf, the 6 box rows and the output once;
+        # a slab test per (ray, box).
+        n, c = args["rays_cf"].shape[1], args["bounds"].shape[1]
+        moved = (7 * n + 6 * c) * 4 + nbytes(out[0])
+        ops = n * c * SLAB_OPS
+        work = f"{n * c} slab tests"
     else:
         live = int((args["rays8"][:, 6] > 0).sum())
     if name in ("cull", "cull_perray"):
@@ -3375,6 +3435,153 @@ def phase_entry_points(plan, cases, dev):
           flush=True)
 
 
+def tool_run(tag, name, fn, card):
+    """Run one tool's ``run()`` with the launch counts set to 0 just
+    before it; print its printout, each line prefixed with ``[tag]``, and
+    its seconds; check the kernels its path must launch.  Returns (its
+    records, the nonzero launch counts)."""
+    import io
+
+    from srt_tpu_torch.ops import traversal as tr
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    tr.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        records = fn()
+    synchronize()
+    secs = time.perf_counter() - t0
+    launches = kernel_launches()
+    for ln in buf.getvalue().splitlines():
+        print(f"[{tag}] {ln}", flush=True)
+    found = path_launches(name, TOOL_PATHS.get(name, ()), launches)
+    check(bool(records), f"{name}: no records")
+    print(f"[{tag}] {name}: {len(records)} records in {secs:.1f} s, "
+          f"launches {found}  [{card}]", flush=True)
+    return records, found
+
+
+def finite_times(name, records, keys):
+    """Every ``keys`` value of every record that has one is finite and
+    positive."""
+    import math
+    for rec in records:
+        for k in keys:
+            if rec.get(k) is not None:
+                check(math.isfinite(rec[k]) and rec[k] > 0,
+                      f"{name}: {k} = {rec[k]} in {rec}")
+
+
+def phase_tools(scene, scene8, cases, dev):
+    """Phase 16: K1 and K2 against their plain versions, micro_occ's path,
+    then every other measurement tool's ``run()`` at the card's sizes on
+    the headline (phase 3) and config8 (phase 6) scenes."""
+    import tempfile
+
+    import torch
+
+    from srt_tpu_torch.tools import (eval_counts, micro_bounce_real,
+                                     micro_occ, micro_pg2_split,
+                                     micro_pgwalk, parity_smoke, parse_trace,
+                                     profile_bench, profile_bounces,
+                                     profile_breakdown, profile_fastpath,
+                                     profile_frame, profile_scan,
+                                     profile_trace, wavefronts)
+
+    t_phase = time.perf_counter()
+    card = cases.card
+
+    # (a) K1 on [8, 128] and K2 on micro_occ's data and on mixed data, each
+    # against its plain version; K1's library yardstick is torch's x + 1.0.
+    gen = torch.Generator().manual_seed(16)
+    x = torch.randn((8, 128), generator=gen).to(dev)
+    cases.run("16a", "add_one", "[8, 128] f32", x)
+    lib_ms, n, queued = device_median(lambda: x + 1.0)
+    cases.results["add_one"]["library_ms"] = lib_ms
+    print(f"[16a] add_one library: torch x + 1.0 {lib_ms:.5f} ms "
+          f"({device_note(n, queued)})  [{card}]", flush=True)
+    own = micro_occ.own_data(OCC_N, OCC_BOXES, 0)[1:]
+    mixed = micro_occ.mixed_data(OCC_N, OCC_BOXES, OCC_TILE, 1)
+    for data, arrays in (("own", own), ("mixed", mixed)):
+        rays_cf, bounds = (torch.as_tensor(a, device=dev) for a in arrays)
+        for g in OCC_GROUPS:
+            occ = cases.run("16a", "occupancy_cf",
+                            f"{OCC_N} rays, {OCC_BOXES} boxes, tile "
+                            f"{OCC_TILE}, g={g}, {data} data", rays_cf,
+                            bounds, OCC_TILE, g)
+            ones = float(occ.float().mean())
+            print(f"[16a] occupancy_cf {data} data g={g}: share of ones "
+                  f"{ones:.6f}", flush=True)
+            if data == "mixed":
+                check(0.2 <= ones <= 0.8, f"occupancy_cf: mixed data gave "
+                                          f"{ones} ones")
+
+    # (b) micro_occ's own run (the path of K1 and K2).
+    records, found = tool_run("16b", "micro_occ", lambda: micro_occ.run(
+        dev, OCC_N, OCC_BOXES, OCC_TILE, OCC_GROUPS, reps=TOOLS_REPS), card)
+    finite_times("micro_occ", records, ("ms", "device_ms"))
+    for k in ("add_one", "occupancy_cf"):
+        cases.results[k].setdefault("launches", found.get(k, 0))
+
+    # (c) every other tool at the card's sizes.
+    size, rsize, reps = TOOLS_SIZE, TOOLS_RUBIK_SIZE, TOOLS_REPS
+    time_keys = ("ms", "cull_ms", "walk_ms", "tiled_ms", "frame_ms",
+                 "ms_min", "seconds", "device_ms", "cull_device_ms",
+                 "walk_device_ms", "b2_ms")
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {
+            "wavefronts": lambda: wavefronts.run(dev, scene, size=size),
+            "eval_counts": lambda: eval_counts.run(dev, scene, size=size,
+                                                   reps=reps),
+            "profile_bounces": lambda: profile_bounces.run(
+                dev, scene, size=size, reps=reps),
+            "profile_breakdown": lambda: profile_breakdown.run(
+                dev, size=rsize, reps=reps),
+            "profile_bench": lambda: profile_bench.run(dev, size=rsize,
+                                                       reps=reps),
+            "profile_frame": lambda: profile_frame.run(dev, size=rsize,
+                                                       reps=reps),
+            "profile_scan": lambda: profile_scan.run(dev, size=rsize,
+                                                     reps=reps),
+            "profile_fastpath": lambda: profile_fastpath.run(
+                dev, scene, size=size, reps=reps,
+                trace_dir=os.path.join(tmp, "fastpath"), top=15),
+            "profile_trace": lambda: profile_trace.run(
+                dev, size=rsize, trace_dir=os.path.join(tmp, "rubik"),
+                top=15),
+            "parity_smoke": lambda: parity_smoke.run(
+                dev, scene, scene8, sizes=PARITY_SIZES,
+                out=os.path.join(tmp, "parity.json")),
+            "micro_bounce_real": lambda: micro_bounce_real.run(
+                dev, scene, size=size, reps=reps),
+            "micro_pg2_split": lambda: micro_pg2_split.run(
+                dev, scene, size=size, reps=reps),
+            "micro_pgwalk": lambda: micro_pgwalk.run(dev, scene, size=size,
+                                                     reps=reps),
+        }
+        results = {}
+        for name, fn in runs.items():
+            results[name] = tool_run("16c", name, fn, card)[0]
+            finite_times(name, results[name], time_keys)
+        fit = [r for r in results["eval_counts"] if r["bounce"] == "fit"]
+        check(len(fit) == 1, "eval_counts: no fit")
+        failed = [c["case"] for c in results["parity_smoke"] if not c["pass"]]
+        check(not failed, f"parity_smoke: cases failed {failed}")
+        check(all((r["device_ms"] or 0) > 0 and r["events"] > 0
+                  for k in ("profile_fastpath", "profile_trace")
+                  for r in results[k]), "a profiled frame shows no device "
+                                        "operations")
+        rec = results["profile_fastpath"][0]
+        summary = parse_trace.run(rec["trace"], top=5, verbose=False)
+        total = rec["device_ms"] or 0.0
+        check(abs(summary["total_ms"] - total) <= 1e-9 * max(1.0, total),
+              "parse_trace disagrees with profile_fastpath's sum")
+        print(f"[16c] parse_trace of the fastpath trace: "
+              f"{summary['total_ms']:.3f} ms across {summary['events']} "
+              f"device events  [{card}]", flush=True)
+    print(f"[16] tools phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="PATH")
@@ -3440,7 +3647,6 @@ def main(argv=None) -> int:
     phase_config8(scene8, scene, cases, args.profile)
     phase_counters({"headline": (scene, HEADLINE_SIZE),
                     "config8": (scene8, CONFIG8_SIZE)}, cases)
-    del scene8
     phase_binned(scene, cases, args.profile)
     phase_scan(scene, cases, args.profile, dev)
     phase_grad(scene, cases, args.profile, dev)
@@ -3449,10 +3655,12 @@ def main(argv=None) -> int:
     phase_edge_aware(scene, cases, args.profile, dev)
     phase_sharded(scene, cases, args.profile, dev)
     phase_entry_points(plan, cases, dev)
+    phase_tools(scene, scene8, cases, dev)
 
     # Each kernel's first case, or its LINE_CASES case: device ms, plain ms
     # and bound of one call.  No single PyTorch call computes a cull, a
-    # walk or the threefry lattice, so library_ms is null for every kernel.
+    # walk, the threefry lattice or K2's occupancy, so library_ms is null
+    # for those; K1's is torch's x + 1.0.
     kernels = []
     for k, (_, src, replaces) in KERNELS.items():
         rec = cases.results[k]
@@ -3465,8 +3673,8 @@ def main(argv=None) -> int:
             max_abs_err=max(c["max_abs_err"] for c in rec["cases"]),
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
-            library_ms=None))
-    print(f"[16] all phases passed in {time.perf_counter() - t_start:.1f} s",
+            library_ms=rec.get("library_ms")))
+    print(f"[17] all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,8 @@ Nothing here runs at import time.
 
 ``launch`` calls one C entry point on PyTorch's current stream, raises if
 the launch failed and adds one to ``launch_counts[name]``: the kernel
-wrappers (``ops/traversal.py``, ``ops/rng.py``) count only real kernel
+wrappers (``ops/traversal.py``, ``ops/rng.py``,
+``tools/micro_occ.py``) count only real kernel
 launches this way, never a plain-version call.  ``launch_counts`` also
 holds ``BRANCH_COUNTERS``, which ``traversal.model_hit`` advances itself.
 
@@ -58,6 +59,8 @@ SIGNATURES = {
     "srt_cull_gmask": [_P, _P, _I, _P, _I, _I, _I, _I, _P, _P],
     "srt_pgwalk": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                    _P],
+    "srt_add_one": [_P, _P, _I, _P],
+    "srt_occupancy_cf": [_P, _P, _I, _I, _I, _I, _P, _P],
 }
 # Branch counters of ``traversal.model_hit``'s pair-binned walk: calls
 # that took the pair tiles, calls that fell back to the tiled walk.  They

@@ -228,8 +228,9 @@ def test_port_imports_no_jax():
     texture sampling, the emitter tables and the app layer (``app``,
     checkpoints, tonemapping, validation, profiling, image files), the
     sharded renders (``parallel``) and the entry points (the numpy oracle,
-    ``bench``, ``bench_suite``, the tools) among them, imports without
-    JAX, optax or the JAX package."""
+    ``bench``, ``bench_suite``, the tools) and every measurement tool
+    (``tools.*``) among them, imports without JAX, optax or the JAX
+    package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import srt_tpu_torch\n"
@@ -246,6 +247,12 @@ def test_port_imports_no_jax():
         "          'bench_suite', 'tools.render_demo',\n"
         "          'tools.interactive_session'):\n"
         "    assert 'srt_tpu_torch.' + m in mods, mods\n"
+        "for m in ('common', 'micro_occ', 'wavefronts', 'eval_counts',\n"
+        "          'profile_bounces', 'profile_breakdown', 'profile_bench',\n"
+        "          'profile_frame', 'profile_scan', 'profile_fastpath',\n"
+        "          'profile_trace', 'parse_trace', 'parity_smoke',\n"
+        "          'micro_bounce_real', 'micro_pg2_split', 'micro_pgwalk'):\n"
+        "    assert 'srt_tpu_torch.tools.' + m in mods, mods\n"
         "bad = [m for m in sys.modules\n"
         "       if m in ('jax', 'optax', 'srt_tpu')\n"
         "       or m.startswith(('jax.', 'optax.', 'srt_tpu.'))]\n"
