@@ -415,6 +415,13 @@ SESSION_SIZES, SESSION_CASE_FRAMES = (1024, 512, 256), 12
 OCC_N, OCC_BOXES, OCC_TILE, OCC_GROUPS = 262144, 10, 512, (8, 64)
 TOOLS_SIZE, TOOLS_RUBIK_SIZE, TOOLS_REPS = 1024, 512, 3
 PARITY_SIZES = None
+# Phase 16d (the last seven tools, JAX's sizes): micro_gather's,
+# micro_soa's and micro_layout's N, micro_binned's random rays, the
+# micro_pg2_split dump's bounce indices micro_sortkeys reads (JAX's
+# default 2, and 1: the 593,120 live rays of bounce 2), multihost_2proc's
+# method.
+TOOLS_N, BINNED_RAYS = 512 * 512, 262144
+SORTKEY_BOUNCES, MULTIHOST_METHOD = (2, 1), "walk"
 # The kernels each tool's run() must launch on the card (phase 16); the
 # Rubik grid is one super, so its walks launch no B1.
 RUBIK_PATH = ("intersect", "threefry")
@@ -435,6 +442,10 @@ TOOL_PATHS = {
     "micro_pg2_split": SCAN_MESH_PATH + ("cull_pg2", "pgwalk2"),
     "micro_pgwalk": SCAN_MESH_PATH + ("cull_pg2", "pgwalk2", "cull_gmask",
                                       "pgwalk"),
+    "micro_binned": ("cull", "cull_perray", "intersect"),
+    # The world's ranks render uv_sphere(12, 18), one super: no B1; the
+    # parent's one-process render launches what each rank does.
+    "multihost_2proc": ONE_SUPER_PATH,
 }
 # Rays of the few-group B4/B4s cases (8 groups at G = 32), and the list
 # entries B4 stages in shared memory (LIST_SH, csrc/pgwalk2.cu).
@@ -3578,7 +3589,128 @@ def phase_tools(scene, scene8, cases, dev):
         print(f"[16c] parse_trace of the fastpath trace: "
               f"{summary['total_ms']:.3f} ms across {summary['events']} "
               f"device events  [{card}]", flush=True)
+        # (d) The last seven tools at JAX's sizes.
+        phase_tools_more(scene, cases, dev, tmp)
     print(f"[16] tools phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def no_kernel(name, found):
+    """A tool that launches no kernel launched none."""
+    launched = sorted(k for k in found if k in KERNELS)
+    check(not launched, f"{name}: launched {launched}")
+
+
+def phase_tools_more(scene, cases, dev, tmp):
+    """Phase 16d: micro_gather, micro_soa, micro_layout, micro_binned
+    (with its B5 and pair-tile B2 launches replayed through their plain
+    versions), micro_footprint on the headline's wavefronts,
+    micro_sortkeys on a micro_pg2_split dump and multihost_2proc's world
+    of 2, each at JAX's sizes; ``tmp`` a directory for the dump and the
+    world."""
+    from srt_tpu_torch.tools import (micro_binned, micro_footprint,
+                                     micro_gather, micro_layout,
+                                     micro_pg2_split, micro_soa,
+                                     micro_sortkeys, multihost_2proc,
+                                     wavefronts)
+
+    t_part = time.perf_counter()
+    card, reps = cases.card, TOOLS_REPS
+    time_keys = ("ms", "device_ms", "tiled_ms", "binned_ms",
+                 "tiled_device_ms", "binned_device_ms", "kernel_ms",
+                 "single_process_frame_s", "multi_process_tile_s")
+    for name, tool in (("micro_gather", micro_gather),
+                       ("micro_soa", micro_soa),
+                       ("micro_layout", micro_layout)):
+        recs, found = tool_run("16d", name, lambda t=tool: t.run(
+            dev, n=TOOLS_N, reps=reps), card)
+        no_kernel(name, found)
+        finite_times(name, recs, time_keys + ("launches",))
+        check(all(r["device_ms"] is not None
+                  and r.get("device_queued", True) for r in recs),
+              f"{name}: a case has no device time, or a host-bound one")
+
+    # micro_binned: the binned walk's branch follows the pair total, as
+    # JAX's lax.cond; B5 and B2 on the pair tiles equal their plain
+    # versions on the tool's sorted rays.
+    recs, found = tool_run("16d", "micro_binned", lambda: micro_binned.run(
+        dev, scene, n=BINNED_RAYS, reps=reps), card)
+    finite_times("micro_binned", recs, time_keys + ("tiled_launches",
+                                                    "binned_launches"))
+    pairs = next(r for r in recs if r["case"] == "pairs")
+    sorted_hit = next(r for r in recs if r.get("order") == "sorted")
+    want = "tiled fallback" if pairs["overflow"] else "pairs"
+    check(sorted_hit["branch"] == want,
+          f"micro_binned: the sorted binned walk took {sorted_hit['branch']}"
+          f", its pair total {pairs['total']} against {pairs['capacity']}")
+    check(all(r["kernel_ms"] for r in recs if r.get("kernel")),
+          "micro_binned: a kernel stage has no device time")
+    _, _, o_s, d_s = micro_binned.random_rays(BINNED_RAYS, dev)
+    rays8, sbounds = micro_binned.front(scene, o_s, d_s)
+    with recorded_launches() as calls:
+        micro_binned.pipeline(scene, rays8, sbounds)
+    synchronize()
+    check([c[0] for c in calls] == ["cull_perray", "intersect"],
+          f"micro_binned's stages launched {[c[0] for c in calls]}")
+    for name, args, k_out in calls:
+        rays = args["rays8"].shape[0]
+        case = (f"micro_binned {BINNED_RAYS} sorted rays: "
+                + (f"{rays // 8} groups, S={args['sbounds'].shape[1]}"
+                   if name == "cull_perray" else
+                   f"{rays // 8} pair slots, {rays // args['tile']} tiles"))
+        fn = getattr(kernel_module(name), name)
+        t0 = time.perf_counter()
+        p_out = fn(**{**args, "plain": True})
+        synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        err = compare(name, case, k_out, p_out)
+        cases.replayed(name, case, p_ms, err)
+        print(f"[16d] {name:16s} {case}: equals plain (plain {p_ms:.1f} ms, "
+              f"max_abs_err {err})  [{card}]", flush=True)
+
+    # micro_footprint on the headline's wavefronts, captured once here.
+    waves = wavefronts.headline(scene, TOOLS_SIZE)
+    recs, found = tool_run("16d", "micro_footprint", lambda: (
+        micro_footprint.run(dev, scene, size=TOOLS_SIZE, waves=waves)), card)
+    no_kernel("micro_footprint", found)
+    check(len(recs) >= 2 and all(r["mean"] > 0 for r in recs),
+          "micro_footprint: fewer than two bounces with footprints")
+    del waves
+
+    # micro_sortkeys on a micro_pg2_split dump of the same frame.
+    dump = os.path.join(tmp, "rays.npz")
+    t0 = time.perf_counter()
+    micro_pg2_split.run(dev, scene, size=TOOLS_SIZE, dump=dump,
+                        dump_only=True, verbose=False)
+    print(f"[16d] micro_pg2_split dump: {os.path.getsize(dump)} bytes in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for bounce in SORTKEY_BOUNCES:
+        recs, found = tool_run("16d", "micro_sortkeys", lambda b=bounce: (
+            micro_sortkeys.run(dev, scene, dump=dump, bounce=b)), card)
+        no_kernel("micro_sortkeys", found)
+        check(recs[0]["live"] > 0 and sum(r["case"] == "key"
+                                           for r in recs) >= 8,
+              f"micro_sortkeys bounce index {bounce}: no live rays or keys")
+    os.remove(dump)
+
+    # multihost_2proc: a gloo world of 2 on the card against one process.
+    recs, found = tool_run("16d", "multihost_2proc", lambda: (
+        multihost_2proc.run(dev, MULTIHOST_METHOD,
+                            workdir=os.path.join(tmp, "world"),
+                            timeout=WORLD2_TIMEOUT)), card)
+    rep = recs[0]
+    finite_times("multihost_2proc", [rep], time_keys)
+    check(rep["bit_equal_to_single_process"] or rep["max_abs_diff"] < 1e-6,
+          f"multihost_2proc: the world of 2 differs by {rep['max_abs_diff']}")
+    for r in rep["per_process"]:
+        path_launches(f"multihost_2proc rank {r['proc']}",
+                      TOOL_PATHS["multihost_2proc"], r["launches"])
+    print(f"[16d] multihost_2proc {MULTIHOST_METHOD}: bit equal "
+          f"{rep['bit_equal_to_single_process']}, max |diff| "
+          f"{rep['max_abs_diff']}, efficiency {rep['scaling_efficiency']:.4f}"
+          f", rank launches {[r['launches'] for r in rep['per_process']]}  "
+          f"[{card}]", flush=True)
+    print(f"[16d] the last seven tools: {time.perf_counter() - t_part:.1f} s",
           flush=True)
 
 

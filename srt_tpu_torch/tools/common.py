@@ -7,7 +7,10 @@ host's dispatch as well as the card's work.  ``device_ms`` is the card's
 own time of one call: the calls are enqueued behind a spin kernel that
 outlasts their dispatch and timed between two CUDA events (None on the
 CPU, where no device time exists).  ``kernel_times`` brackets each launch
-of the named kernels with CUDA events inside a real call.
+of the named kernels with CUDA events inside a real call.  ``device_ops``
+sums one call's device operations in a ``torch.profiler`` trace: for
+calls that read the card from the host, or launch more kernels than
+calls queued behind a spin could hold.
 """
 
 from __future__ import annotations
@@ -264,3 +267,38 @@ def profiled(fn, dev: torch.device, trace_dir=None, top: int = 40):
     if dev.type != "cuda":
         summary["total_ms"] = None
     return summary, path
+
+
+def device_ops(fn, dev: torch.device):
+    """(device operations, their summed device ms) of one ``fn()`` call:
+    the kernels, copies and sets the call puts on the card, read from a
+    ``torch.profiler`` trace (``parse_trace.summarize``) in a temporary
+    directory that is removed after.  Each profiler window records a
+    warm-up call and keeps the second; of three windows the fullest is
+    kept, since a window can miss kernels (on the H100, late in a long
+    process: 0 of a call's 1, 93 of 100).  (None, None) on the CPU, where
+    nothing is launched."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from srt_tpu_torch.tools import parse_trace
+
+    if dev.type != "cuda":
+        return None, None
+    best = (0, 0.0)
+    for _ in range(3):
+        with tempfile.TemporaryDirectory(prefix="srt_trace_") as tmp:
+            path = os.path.join(tmp, "trace.json")
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1),
+                         on_trace_ready=lambda p: p.export_chrome_trace(path)
+                         ) as prof:
+                for _ in range(2):
+                    fn()
+                    sync(dev)
+                    prof.step()
+            summary = parse_trace.summarize(path, top=0)
+        best = max(best, (summary["events"], summary["total_ms"]))
+    return best

@@ -251,7 +251,10 @@ def test_port_imports_no_jax():
         "          'profile_bounces', 'profile_breakdown', 'profile_bench',\n"
         "          'profile_frame', 'profile_scan', 'profile_fastpath',\n"
         "          'profile_trace', 'parse_trace', 'parity_smoke',\n"
-        "          'micro_bounce_real', 'micro_pg2_split', 'micro_pgwalk'):\n"
+        "          'micro_bounce_real', 'micro_pg2_split', 'micro_pgwalk',\n"
+        "          'micro_gather', 'micro_soa', 'micro_layout',\n"
+        "          'micro_binned', 'micro_footprint', 'micro_sortkeys',\n"
+        "          'multihost_2proc'):\n"
         "    assert 'srt_tpu_torch.tools.' + m in mods, mods\n"
         "bad = [m for m in sys.modules\n"
         "       if m in ('jax', 'optax', 'srt_tpu')\n"

@@ -61,7 +61,9 @@ TOOLS = ("micro_occ", "wavefronts", "eval_counts", "profile_bounces",
          "profile_breakdown", "profile_bench", "profile_frame",
          "profile_scan", "profile_fastpath", "profile_trace", "parse_trace",
          "parity_smoke", "micro_bounce_real", "micro_pg2_split",
-         "micro_pgwalk")
+         "micro_pgwalk", "micro_gather", "micro_soa", "micro_layout",
+         "micro_binned", "micro_footprint", "micro_sortkeys",
+         "multihost_2proc")
 
 
 def lights_of(jl):
@@ -224,10 +226,20 @@ RUN_KEYS = {
     "micro_bounce_real": ({"case", "bounce"}, {"walk", "cull"}),
     "micro_pg2_split": ({"case", "bounce"}, {"split", "shadow"}),
     "micro_pgwalk": ({"case", "bounce"}, {"closest", "shadow", "gmask"}),
+    "micro_gather": ({"what", "ms", "device_ms"}, None),
+    "micro_soa": ({"what", "ms", "device_ms", "launches"}, None),
+    "micro_layout": ({"what", "ms", "device_ms", "launches"}, None),
+    "micro_binned": ({"case"}, {"scene", "hit", "stage", "supers", "pairs"}),
+    "micro_footprint": ({"bounce", "live", "sampled", "mean", "p50", "p90",
+                         "unions", "shadow"}, None),
+    "micro_sortkeys": ({"case"}, {"footprint", "shadow", "key"}),
+    "multihost_2proc": ({"bit_equal_to_single_process", "max_abs_diff",
+                         "scaling_efficiency", "per_process"}, None),
 }
 # Times (positive) and time differences (finite) a record may carry.
 TIMES = ("ms", "seconds", "cull_ms", "walk_ms", "total_ms", "tiled_ms",
-         "frame_ms", "ms_min", "ms_mean", "ns_per_ceval")
+         "frame_ms", "ms_min", "ms_mean", "ns_per_ceval", "binned_ms",
+         "single_process_frame_s", "multi_process_tile_s")
 DIFFERENCES = ("marginal_ms", "shadow_ms")
 
 
@@ -256,6 +268,20 @@ def small_run(name, ps, tmp_path):
     if name == "micro_pg2_split":
         return tool.run("cpu", ps, size=RUN_SIZE, groups=(16, 32), reps=1,
                         **kw)
+    if name in ("micro_gather", "micro_soa", "micro_layout"):
+        return tool.run("cpu", n=4096, reps=1, **kw)
+    if name == "micro_binned":
+        return tool.run("cpu", ps, n=2048, reps=1, **kw)
+    if name == "micro_footprint":
+        return tool.run("cpu", ps, size=RUN_SIZE, **kw)
+    if name == "micro_sortkeys":
+        dump = str(tmp_path / "rays.npz")
+        importlib.import_module("srt_tpu_torch.tools.micro_pg2_split").run(
+            "cpu", ps, size=SIZE, dump=dump, dump_only=True, **kw)
+        return tool.run("cpu", ps, dump=dump, bounce=0, **kw)
+    if name == "multihost_2proc":
+        return tool.run("cpu", "dense", workdir=str(tmp_path / "world"),
+                        threads=1, **kw)
     return tool.run("cpu", ps, size=RUN_SIZE, reps=1, **kw)
 
 
@@ -274,9 +300,18 @@ def test_tool_run_on_cpu(name, three_supers, tmp_path):
         for k in DIFFERENCES:
             if k in rec:
                 assert math.isfinite(rec[k])
-        # No device time exists on the CPU.
-        for k in ("device_ms", "b2_ms"):
+        # No device time or launch exists on the CPU.
+        for k in ("device_ms", "b2_ms", "launches", "kernel_ms",
+                  "tiled_device_ms", "binned_device_ms", "tiled_launches",
+                  "binned_launches"):
             assert rec.get(k) is None
+    if name == "multihost_2proc":
+        assert recs[0]["bit_equal_to_single_process"]
+    if name == "micro_binned":
+        hits = [r for r in recs if r["case"] == "hit"]
+        assert [r["branch"] for r in hits] == ["pairs", "pairs"]
+        stages = [r["stage"] for r in recs if r["case"] == "stage"]
+        assert stages == ["front", "cull", "pairs", "gather", "kern"]
     if name == "parity_smoke":
         assert all(r["pass"] for r in recs) and len(recs) == 9
         saved = json.loads((tmp_path / "parity.json").read_text())
