@@ -9,6 +9,8 @@ Phases, one line each; the last line is printed only when all pass:
 1. Device: the card's name and ``nvidia-smi`` name/power limit.  Exits
    nonzero without a CUDA device.
 2. Build: nvcc builds ``srt_tpu_torch/csrc`` into ``build/srt_tpu_torch``.
+   With ``cuobjdump``, the instructions each bound counts from the SASS
+   (threefry's a point, K2's a slab test) are checked against the build.
 3. Kernel vs plain PyTorch version, on the card, at the headline scene's
    tables (101,760 triangles, 50 superclusters) and 65,536 rays per case:
    outputs must be equal; median times of both.  B2 also at tile 32 on
@@ -235,12 +237,19 @@ Phases, one line each; the last line is printed only when all pass:
    finite, not flat) and ``interactive_session``'s cases (their JSON
    lines, fps finite).  The phase prints its seconds.
 16. The measurement tools (``srt_tpu_torch.tools``).  (a) K1
-   (``add_one``, one block on [8, 128]) and K2 (``occupancy_cf``: 262,144
-   rays component-first, 10 boxes, tile 512, g = 8 and 64 tiles a block,
-   on micro_occ's own normal draws and on ``mixed_data``, whose share of
-   ones must lie in [0.2, 0.8]) against their plain versions, equal
-   exactly; K1's library yardstick is torch's ``x + 1.0``.  (b)
-   ``micro_occ.run`` (the path of K1 and K2).  (c) Every other tool's
+   (``add_one``) on [8, 128], on [8192, 8192], on 1028 floats (a last
+   block part filled), and on odd-length and 4-byte-aligned views (its
+   scalar path), torch's ``x + 1.0`` beside it at both sizes as its
+   library yardstick; K2 (``occupancy_cf``) on 262,144 rays
+   component-first, 10 boxes, tile 512, at JAX's g = 8 and 64 (one launch
+   on the card), on micro_occ's own normal draws and on ``mixed_data``
+   (share of ones in [0.2, 0.8]), then on mixed data at tiles 6 (scalar
+   path), 8, 48 and 4096, at C = 1 and 32, and on rows that are not
+   16-byte aligned (scalar path): each against its plain version, equal
+   exactly.  (b) ``micro_occ.run`` (the path of K1 and K2), and a host
+   line from its records: µs a call over 10,000 calls back to back of K1,
+   of torch's ``x + 1.0`` and of one B1 ``traversal.cull`` at micro_occ's
+   shape.  (c) Every other tool's
    ``run()`` at the card's sizes (1024x1024 headline frames on phase 3's
    scene, 512x512 Rubik frames, ``parity_smoke`` on phase 3's and phase
    6's scenes), reps 3: each tool's printout, its records' times finite
@@ -413,6 +422,11 @@ SESSION_SIZES, SESSION_CASE_FRAMES = (1024, 512, 256), 12
 # repetitions, parity_smoke's (camera side, random rays) a scene (its own
 # defaults when None).
 OCC_N, OCC_BOXES, OCC_TILE, OCC_GROUPS = 262144, 10, 512, (8, 64)
+# K1's large case and the calls back to back of micro_occ's host µs a
+# launch; K2's other cases (tile, rays; boxes), on mixed data.
+ADD_ONE_LARGE, HOST_REPS = (8192, 8192), 10_000
+OCC_TILE_CASES = ((6, 196608), (8, 262144), (48, 196608), (4096, 262144))
+OCC_BOX_CASES = (1, 32)
 TOOLS_SIZE, TOOLS_RUBIK_SIZE, TOOLS_REPS = 1024, 512, 3
 PARITY_SIZES = None
 # Phase 16d (the last seven tools, JAX's sizes): micro_gather's,
@@ -487,13 +501,23 @@ FLOAT_OUTPUTS = {"cull": (1,), "intersect": (0,), "cull_pg2": (),
 # VIADD counted there, where it makes the bound the smaller).  Each pipe
 # takes 64 lanes per SM a clock (Hopper white paper: 64 INT32 lanes; the
 # FMA pipe's integer half), 132 SMs x 64 x 1.98 GHz = 16.7 Tops/s, and a
-# point is bound by the busier pipe, the ALU's 52.
+# point is bound by the busier pipe, the ALU's 52.  K2 (occupancy_cf) the
+# same way, from its box loop in the SASS (``occupancy_sass_ops``: one box
+# against a thread's 4 rays): FMNMX (min.NaN / max.NaN), FSETP, FSEL and
+# logic ops on the ALU pipe at 16.7 Tops/s, FADD and FMUL (no FFMA) on the
+# FMA pipe at 128 FP32 lanes an SM a clock (33.5 T instructions/s, half
+# the 67 TFLOP/s that counts a multiply-add as two); a test is bound by
+# the busier pipe.  B1, B3, B5 and B6 still count SLAB_OPS at 67 TFLOP/s.
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
 PEAK_INT32_OPS_S = 132 * 64 * 1.98e9
+PEAK_FP32_INSTR_S = PEAK_OPS_S / 2
 SLAB_OPS = 26
 WOOP_OPS = 52
 THREEFRY_ALU_OPS, THREEFRY_FMA_OPS = 52, 20
+# K2's instructions a box iteration of its OCC_SASS_RAYS rays a thread (as
+# many slab tests) in the vector-path kernel: ALU, FMA.
+OCC_SASS_RAYS, OCC_ALU_OPS, OCC_FMA_OPS = 4, 65, 48
 
 
 class SmokeFailure(Exception):
@@ -747,20 +771,13 @@ def ptxas_lines(log):
     return out
 
 
-def threefry_sass_ops(lib_path):
+def threefry_sass_ops(sass):
     """(ALU-pipe, FMA-pipe) integer instructions per lattice point of the
-    built threefry kernel: its SASS (``cuobjdump -sass``) from after the
+    built threefry kernel: its SASS (``sass_of``) from after the
     last key or column load to the output store, less uniform-datapath,
     predicated, compare, move, load, store and address instructions and
-    the float subtraction; IMAD and VIADD forms count on the FMA pipe.
-    None without cuobjdump."""
+    the float subtraction; IMAD and VIADD forms count on the FMA pipe."""
     import re
-    import shutil
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.path.exists(tool):
-        return None
-    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
-                          text=True, timeout=300).stdout
     body = sass.split("threefry_kernel", 1)[1].split("Function :", 1)[0]
     ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]+);", body)
     last_load = max(i for i, t in enumerate(ops) if "LDG" in t)
@@ -773,6 +790,62 @@ def threefry_sass_ops(lib_path):
                and t.split()[0] not in address]
     fma = sum(op.startswith(("IMAD", "VIADD")) for op in counted)
     return len(counted) - fma, fma
+
+
+def sass_of(lib_path):
+    """The built library's SASS (``cuobjdump -sass``), or None without
+    cuobjdump."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    return subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300).stdout
+
+
+def occupancy_sass_ops(sass):
+    """(ALU-pipe, FMA-pipe) instructions of K2's box loop (one box against
+    a thread's rays) in the vector-path kernel's SASS: the loop is the
+    backward branch's body with the most FMNMX; FMNMX, FSETP, FSEL, SEL,
+    LOP3, PLOP3 and SHF count on the ALU pipe, FADD, FMUL and FFMA on the
+    FMA pipe; loop counters, loads and branches are not counted."""
+    import re
+    fun = next(f for f in sass.split("Function : ")[1:]
+               if "19occupancy_cf_kernelILb1EE" in f.split(None, 1)[0])
+    addr, labels, ops = {}, {}, []
+    pending = []
+    for ln in fun.splitlines():
+        lab = re.match(r"\s*(\.L_x_\d+):", ln)
+        if lab:
+            pending.append(lab.group(1))
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]+);", ln)
+        if m:
+            a = int(m.group(1), 16)
+            for name in pending:
+                labels[name] = a
+            pending = []
+            ops.append((a, m.group(2).strip()))
+    for i, (a, _) in enumerate(ops):
+        addr[a] = i
+    best = None
+    for i, (a, text) in enumerate(ops):
+        m = re.search(r"BRA\s+(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))", text)
+        if not m:
+            continue
+        target = labels.get(m.group(1)) if m.group(1) else int(m.group(2), 16)
+        if target is None or target >= a or target not in addr:
+            continue
+        body = [re.sub(r"^@!?U?P[T0-9]\s+", "", t).split()[0]
+                for _, t in ops[addr[target]:i]]
+        fmnmx = sum(op.startswith("FMNMX") for op in body)
+        if best is None or fmnmx > best[0]:
+            best = (fmnmx, body)
+    body = best[1]
+    alu = sum(op.split(".")[0] in ("FMNMX", "FSETP", "FSEL", "SEL", "LOP3",
+                                   "PLOP3", "SHF") for op in body)
+    fma = sum(op.split(".")[0] in ("FADD", "FMUL", "FFMA") for op in body)
+    return alu, fma
 
 
 def pgwalk_split(mask, rays8, woop, any_hit):
@@ -838,7 +911,7 @@ def bound_of(name, args, out):
     """(bound_ms, bound_by, work) of one kernel call: the larger of the
     bytes its tensor inputs and outputs must move (each once) over the
     card's memory rate and the operations these inputs need over its FP32
-    rate (threefry: its busier integer pipe's instructions over that
+    rate (threefry, K2: their busier pipe's instructions over that
     pipe's rate); ``work`` says what was counted.  The
     walks count the clusters
     their gates admit on these inputs (B2: B2c's counters on the same
@@ -859,11 +932,15 @@ def bound_of(name, args, out):
         ops = out[0].numel()
     elif name == "occupancy_cf":
         # The 7 used rows of rays_cf, the 6 box rows and the output once;
-        # a slab test per (ray, box).
+        # a slab test per (ray, box) on the busier of its two pipes.
         n, c = args["rays_cf"].shape[1], args["bounds"].shape[1]
         moved = (7 * n + 6 * c) * 4 + nbytes(out[0])
-        ops = n * c * SLAB_OPS
-        work = f"{n * c} slab tests"
+        alu, fma = OCC_ALU_OPS / OCC_SASS_RAYS, OCC_FMA_OPS / OCC_SASS_RAYS
+        ops, peak = max((n * c * alu, PEAK_INT32_OPS_S),
+                        (n * c * fma, PEAK_FP32_INSTR_S),
+                        key=lambda p: p[0] / p[1])
+        work = (f"{n * c} slab tests, {alu} ALU-pipe and {fma} FMA-pipe "
+                f"instructions each")
     else:
         live = int((args["rays8"][:, 6] > 0).sum())
     if name in ("cull", "cull_perray"):
@@ -3482,13 +3559,77 @@ def finite_times(name, records, keys):
                       f"{name}: {k} = {rec[k]} in {rec}")
 
 
+def phase_micro_occ(cases, dev):
+    """Phase 16a: K1 and K2 against their plain versions at micro_occ's
+    shapes and the others of its docstring entry, torch's x + 1.0 as K1's
+    library yardstick."""
+    import torch
+
+    from srt_tpu_torch.tools import micro_occ
+
+    card = cases.card
+    gen = torch.Generator().manual_seed(16)
+    x = torch.randn((8, 128), generator=gen).to(dev)
+    cases.run("16a", "add_one", "[8, 128] f32", x)
+    lib_ms, n, queued = device_median(lambda: x + 1.0)
+    cases.results["add_one"]["library_ms"] = lib_ms
+    print(f"[16a] add_one library: torch x + 1.0 on [8, 128] {lib_ms:.5f} ms "
+          f"({device_note(n, queued)})  [{card}]", flush=True)
+    # A last block part filled (1028 = 257 float4), then the scalar path.
+    flat = torch.randn(4097, generator=gen).to(dev)
+    for case, view in (("1028 f32 (257 float4)", flat[:1028]),
+                       ("4095 f32 (odd length)", flat[1:4096]),
+                       ("4096 f32 at a 4-byte offset", flat[1:])):
+        cases.run("16a", "add_one", case, view)
+    big = torch.randn(ADD_ONE_LARGE, device=dev,
+                      generator=torch.Generator(dev).manual_seed(16))
+    shape = f"[{ADD_ONE_LARGE[0]}, {ADD_ONE_LARGE[1]}]"
+    cases.run("16a", "add_one", f"{shape} f32", big)
+    lib_ms, n, queued = device_median(lambda: big + 1.0)
+    print(f"[16a] add_one library: torch x + 1.0 on {shape} {lib_ms:.5f} ms "
+          f"({device_note(n, queued)})  [{card}]", flush=True)
+    del big
+
+    own = micro_occ.own_data(OCC_N, OCC_BOXES, 0)[1:]
+    mixed = micro_occ.mixed_data(OCC_N, OCC_BOXES, OCC_TILE, 1)
+    for data, arrays in (("own", own), ("mixed", mixed)):
+        rays_cf, bounds = (torch.as_tensor(a, device=dev) for a in arrays)
+        for g in OCC_GROUPS:
+            occ_case(cases, f"{OCC_N} rays, {OCC_BOXES} boxes, tile "
+                     f"{OCC_TILE}, g={g}, {data} data", rays_cf, bounds,
+                     OCC_TILE, g, data == "mixed")
+    extra = [(tile, n, OCC_BOXES) for tile, n in OCC_TILE_CASES]
+    extra += [(OCC_TILE, OCC_N, c) for c in OCC_BOX_CASES]
+    for tile, n, c in extra:
+        rays_cf, bounds = (torch.as_tensor(a, device=dev)
+                           for a in micro_occ.mixed_data(n, c, tile, 1))
+        occ_case(cases, f"{n} rays, {c} boxes, tile {tile}, mixed data",
+                 rays_cf, bounds, tile, 1, True)
+    # Rows at a 4-byte offset: the scalar loads at a tile of 512.
+    rays_cf, bounds = (torch.as_tensor(a, device=dev) for a in mixed)
+    store = torch.empty(8 * OCC_N + 1, device=dev)
+    shifted = store[1:].view(8, OCC_N)
+    shifted.copy_(rays_cf)
+    occ_case(cases, f"{OCC_N} rays, {OCC_BOXES} boxes, tile {OCC_TILE}, "
+             f"rows at a 4-byte offset", shifted, bounds, OCC_TILE, 1, True)
+
+
+def occ_case(cases, case, rays_cf, bounds, tile, g, mixed):
+    """One K2 case against its plain version, with its share of ones
+    (in [0.2, 0.8] on mixed data)."""
+    occ = cases.run("16a", "occupancy_cf", case, rays_cf, bounds, tile, g)
+    ones = float(occ.float().mean())
+    print(f"[16a] occupancy_cf {case}: share of ones {ones:.6f}", flush=True)
+    if mixed:
+        check(0.2 <= ones <= 0.8, f"occupancy_cf {case}: mixed data gave "
+                                  f"{ones} ones")
+
+
 def phase_tools(scene, scene8, cases, dev):
     """Phase 16: K1 and K2 against their plain versions, micro_occ's path,
     then every other measurement tool's ``run()`` at the card's sizes on
     the headline (phase 3) and config8 (phase 6) scenes."""
     import tempfile
-
-    import torch
 
     from srt_tpu_torch.tools import (eval_counts, micro_bounce_real,
                                      micro_occ, micro_pg2_split,
@@ -3501,35 +3642,22 @@ def phase_tools(scene, scene8, cases, dev):
     t_phase = time.perf_counter()
     card = cases.card
 
-    # (a) K1 on [8, 128] and K2 on micro_occ's data and on mixed data, each
-    # against its plain version; K1's library yardstick is torch's x + 1.0.
-    gen = torch.Generator().manual_seed(16)
-    x = torch.randn((8, 128), generator=gen).to(dev)
-    cases.run("16a", "add_one", "[8, 128] f32", x)
-    lib_ms, n, queued = device_median(lambda: x + 1.0)
-    cases.results["add_one"]["library_ms"] = lib_ms
-    print(f"[16a] add_one library: torch x + 1.0 {lib_ms:.5f} ms "
-          f"({device_note(n, queued)})  [{card}]", flush=True)
-    own = micro_occ.own_data(OCC_N, OCC_BOXES, 0)[1:]
-    mixed = micro_occ.mixed_data(OCC_N, OCC_BOXES, OCC_TILE, 1)
-    for data, arrays in (("own", own), ("mixed", mixed)):
-        rays_cf, bounds = (torch.as_tensor(a, device=dev) for a in arrays)
-        for g in OCC_GROUPS:
-            occ = cases.run("16a", "occupancy_cf",
-                            f"{OCC_N} rays, {OCC_BOXES} boxes, tile "
-                            f"{OCC_TILE}, g={g}, {data} data", rays_cf,
-                            bounds, OCC_TILE, g)
-            ones = float(occ.float().mean())
-            print(f"[16a] occupancy_cf {data} data g={g}: share of ones "
-                  f"{ones:.6f}", flush=True)
-            if data == "mixed":
-                check(0.2 <= ones <= 0.8, f"occupancy_cf: mixed data gave "
-                                          f"{ones} ones")
+    # (a) K1 and K2 against their plain versions.
+    phase_micro_occ(cases, dev)
 
-    # (b) micro_occ's own run (the path of K1 and K2).
+    # (b) micro_occ's own run (the path of K1 and K2), and the host line
+    # from its records.
     records, found = tool_run("16b", "micro_occ", lambda: micro_occ.run(
-        dev, OCC_N, OCC_BOXES, OCC_TILE, OCC_GROUPS, reps=TOOLS_REPS), card)
-    finite_times("micro_occ", records, ("ms", "device_ms"))
+        dev, OCC_N, OCC_BOXES, OCC_TILE, OCC_GROUPS, reps=TOOLS_REPS,
+        launch_reps=HOST_REPS), card)
+    finite_times("micro_occ", records, ("ms", "device_ms", "us_a_launch"))
+    us = {r["variant"]: r["us_a_launch"] for r in records
+          if "us_a_launch" in r}
+    print(f"[16b] host: K1 add_one [8, 128] {us['v0']:.3f} µs a launch, "
+          f"torch x + 1.0 {us['v0c']:.3f} µs ({us['v0'] / us['v0c']:.3f}x); "
+          f"B1 cull ({OCC_N} rays, {OCC_BOXES} boxes, tile {OCC_TILE}) "
+          f"{us['v1']:.3f} µs a call; {HOST_REPS} calls back to back "
+          f"each  [{card}]", flush=True)
     for k in ("add_one", "occupancy_cf"):
         cases.results[k].setdefault("launches", found.get(k, 0))
 
@@ -3750,15 +3878,20 @@ def main(argv=None) -> int:
           f"load {time.perf_counter() - t0:.3f} s", flush=True)
     for ln in ptxas:
         print(f"[2] {ln.strip()}", flush=True)
-    sass = threefry_sass_ops(lib.path)
-    want = (THREEFRY_ALU_OPS, THREEFRY_FMA_OPS)
-    check(sass in (None, want), f"threefry's SASS has {sass} (ALU, FMA) "
-                                f"instructions per point, the bounds count "
-                                f"{want}")
-    print(f"[2] threefry: {want} (ALU-pipe, FMA-pipe) integer instructions "
-          f"per point, "
-          f"{'checked in the SASS' if sass else 'not checked (no cuobjdump)'}",
-          flush=True)
+    sass = sass_of(lib.path)
+    for label, count, want in (
+            ("threefry", threefry_sass_ops, (THREEFRY_ALU_OPS,
+                                             THREEFRY_FMA_OPS)),
+            ("occupancy_cf", occupancy_sass_ops, (OCC_ALU_OPS,
+                                                  OCC_FMA_OPS))):
+        got = count(sass) if sass else None
+        check(got in (None, want), f"{label}'s SASS has {got} (ALU, FMA) "
+                                   f"instructions where its bound counts "
+                                   f"{want}")
+        print(f"[2] {label}: {want} (ALU-pipe, FMA-pipe) instructions "
+              f"counted by its bound, "
+              f"{'checked in the SASS' if sass else 'not checked (no cuobjdump)'}",
+              flush=True)
 
     dev = torch.device("cuda", 0)
     cases = Cases(card)

@@ -13,6 +13,10 @@ wrappers (``ops/traversal.py``, ``ops/rng.py``,
 ``tools/micro_occ.py``) count only real kernel
 launches this way, never a plain-version call.  ``launch_counts`` also
 holds ``BRANCH_COUNTERS``, which ``traversal.model_hit`` advances itself.
+Every kernel pays ``launch``'s host cost on every call, so it does the
+least it can: the entry points are resolved once, by ``load``; the
+stream is read as a raw pointer, with no ``torch.cuda.Stream`` object;
+the device is switched only when the tensors are not on the current one.
 
 Flags: ``-fmad=false`` keeps every multiply and add separately rounded, so
 a kernel's candidate t equals its plain PyTorch version's bit for bit; no
@@ -31,6 +35,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "srt_tpu_torch"
@@ -60,7 +66,7 @@ SIGNATURES = {
     "srt_pgwalk": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                    _P],
     "srt_add_one": [_P, _P, _I, _P],
-    "srt_occupancy_cf": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "srt_occupancy_cf": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
 }
 # Branch counters of ``traversal.model_hit``'s pair-binned walk: calls
 # that took the pair tiles, calls that fell back to the tiled walk.  They
@@ -79,6 +85,8 @@ class Library:
     path: Path
     build_seconds: float   # 0.0 when an up-to-date build was reused
     log: str               # nvcc's output (ptxas register/spill lines)
+    # Wrapper name (a ``launch_counts`` key) -> its C entry point.
+    functions: dict
 
 
 def _nvcc() -> str:
@@ -145,13 +153,16 @@ def load() -> Library:
         log = _build(sources, so)
         seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
+    functions = {}
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+        functions[name[4:]] = fn
     lib.srt_error_string.argtypes = [ctypes.c_int]
     lib.srt_error_string.restype = ctypes.c_char_p
-    return Library(lib=lib, path=so, build_seconds=seconds, log=log)
+    return Library(lib=lib, path=so, build_seconds=seconds, log=log,
+                   functions=functions)
 
 
 def error_string(code: int) -> str:
@@ -163,19 +174,32 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
-def launch(name: str, *args) -> None:
-    """Call ``srt_<name>`` on the current stream of the first tensor
-    argument's device and raise if the launch failed.  Tensors go as
-    pointers, None as a null pointer, ints as the signature's C type."""
-    import torch
+def _current_device() -> int:
+    return torch._C._cuda_getDevice()
 
-    lib = load().lib
-    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
-    stream = torch.cuda.current_stream(dev).cuda_stream
+
+def _raw_stream(index: int) -> int:
+    """The current stream of device ``index`` as a pointer, read as
+    PyTorch's own generated launchers read it, without building a
+    ``torch.cuda.Stream``; a launch inside a CUDA-graph capture is
+    captured, as on the stream object."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def launch(name: str, *args) -> None:
+    """Call ``srt_<name>`` on the current stream of the device of its first
+    argument, a tensor, and raise if the launch failed.  Tensors go as
+    pointers, None as a null pointer, ints as the signature's C type."""
+    fn = load().functions[name]
+    index = args[0].get_device()
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
              for a in args]
-    with torch.cuda.device(dev):
-        err = getattr(lib, f"srt_{name}")(*cargs, stream)
+    stream = _raw_stream(index)
+    if index == _current_device():
+        err = fn(*cargs, stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*cargs, stream)
     if err != 0:
         raise RuntimeError(f"kernel {name} failed to launch: "
                            f"{error_string(err)}")

@@ -77,6 +77,7 @@ Parity notes (named where they apply):
 
 from __future__ import annotations
 
+import functools
 import weakref
 
 import numpy as np
@@ -915,15 +916,18 @@ def _pgwalk_launch(mask, rays8, woop, any_hit):
 def _on_cpu(x) -> bool:
     """True for CPU tensors (plain version), False for CUDA tensors
     (kernel); any other device raises."""
+    if x.is_cuda:
+        return False
     if x.device.type == "cpu":
         return True
-    if x.device.type != "cuda":
-        raise ValueError(f"traversal kernels need CPU or CUDA tensors, got "
-                         f"{x.device}")
-    return False
+    raise ValueError(f"traversal kernels need CPU or CUDA tensors, got "
+                     f"{x.device}")
 
 
+@functools.lru_cache(maxsize=None)
 def _sm_count(device) -> int:
+    """The card's SM count, read once a device (launch shapes ask for it
+    on every call)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 

@@ -10,8 +10,11 @@ Run as ``python3 -m srt_tpu_torch.tools.micro_occ [--device DEV] [--n N]
 * v0c: ``x + 1.0`` through torch (one ``torch.add``);
 * v1: B1 (``traversal.cull``) on N rays [N, 8] against C boxes at tile T;
 * v4: K2 (``occupancy_cf``), rays component-first [8, N] against C boxes,
-  one int32 a (tile, box), at g = 8 and 64 tiles a block, on JAX's own
-  data and on data of mixed occupancy (``mixed_data``).
+  one int32 a (tile, box), at JAX's g = 8 and 64 (tiles a block on the
+  TPU), on JAX's own data and on data of mixed occupancy
+  (``mixed_data``).  On the card g only checks that N is a multiple of
+  tile * g: K2's launch comes from N, the tile and the SM count
+  (``occupancy_launch``), so g = 8 and g = 64 run the same launch.
 
 JAX's own data (normal draws, seed 0) gives an occupancy of 1 everywhere,
 which would hide a fault in K2; the mixed data aims each tile's rays at
@@ -22,7 +25,8 @@ K2 takes the ``bounds`` operand that v4 meant to pass.
 Each line gives the wall ms of a call (calls back to back, one
 synchronise: JAX's ``timeit``; for K1 it is the host's cost of a launch)
 and the device ms (CUDA events around calls queued behind a spin; "not
-measured" on the CPU).
+measured" on the CPU); v0, v0c and v1 also give the host's µs a call
+over ``LAUNCH_REPS`` calls back to back, the cost of a launch.
 """
 
 from __future__ import annotations
@@ -41,6 +45,12 @@ from srt_tpu_torch.tools import common
 N, TILE, C = 262144, 512, 10
 GROUPS = (8, 64)
 MAX_BOXES = 32      # K2's per-ray hit mask is one 32-bit word
+# K2's launch (csrc/micro_occ.cu): consecutive rays a thread (the
+# kernel's OCC_RAYS), rays a block while its tiles fit in one pass, at most
+# threads a block, at least blocks an SM where the tiles allow it.
+OCC_RAYS, OCC_BLOCK_RAYS, OCC_MAX_THREADS, OCC_BLOCKS_PER_SM = 4, 512, 512, 2
+# Host cost of a launch: back-to-back calls timed.
+LAUNCH_REPS = 10_000
 
 
 # ---------------------------------------------------------------------------
@@ -52,12 +62,16 @@ def add_one_plain(x):
 
 
 def add_one(x, plain: bool = False):
-    """K1 on a float32 tensor (one block, so keep it small: [8, 128] in
-    the tool)."""
-    if plain or traversal._on_cpu(x):
-        return add_one_plain(x)
+    """K1 on a contiguous float32 tensor of any size: a float4 a thread,
+    or a float a thread when the length is not a multiple of 4 or a
+    pointer not 16-byte aligned."""
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("add_one takes a contiguous float32 tensor")
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"add_one takes fewer than 2**31 elements, got "
+                         f"{x.numel()}")
+    if plain or traversal._on_cpu(x):
+        return add_one_plain(x)
     o = torch.empty_like(x)
     launch("add_one", x, o, x.numel())
     return o
@@ -82,8 +96,9 @@ def _check_occupancy(rays_cf, bounds, tile: int, g: int) -> None:
 def occupancy_cf_plain(rays_cf, bounds, tile: int, g: int = 1):
     """Plain version of K2: occ [N / tile, C] int32, 1 where some ray of
     the tile passes the slab test of box c (``sel`` is t_near, or t_far
-    from inside the box, below the ray's t_max).  ``g`` shapes only the
-    kernel's launch."""
+    from inside the box, below the ray's t_max).  ``g`` only checks JAX's
+    grid rule, N a multiple of tile * g: the output does not depend on
+    it."""
     _check_occupancy(rays_cf, bounds, tile, g)
     n, c = rays_cf.shape[1], bounds.shape[1]
     o = rays_cf[0:3, None, :]
@@ -98,8 +113,29 @@ def occupancy_cf_plain(rays_cf, bounds, tile: int, g: int = 1):
     return hit.view(c, n // tile, tile).any(-1).T.to(torch.int32).contiguous()
 
 
+def occupancy_launch(n: int, tile: int, sms: int):
+    """(blocks, threads, tiles a block) of a K2 launch on n rays in
+    tiles of ``tile``, from these and the SM count alone (JAX's g
+    does not enter).  A block takes whole tiles: as many as fill
+    ``OCC_BLOCK_RAYS`` rays while the grid keeps ``OCC_BLOCKS_PER_SM``
+    blocks an SM, with threads of ``OCC_RAYS`` rays for one pass over
+    them; a larger tile is one block's, up to ``OCC_MAX_THREADS`` threads
+    looping over it."""
+    n_tiles = n // tile
+    if tile <= OCC_BLOCK_RAYS:
+        k = max(1, min(OCC_BLOCK_RAYS // tile,
+                       n_tiles // (OCC_BLOCKS_PER_SM * sms)))
+        rays = k * tile
+    else:
+        k, rays = 1, min(tile, OCC_MAX_THREADS * OCC_RAYS)
+    threads = -(-rays // (32 * OCC_RAYS)) * 32
+    return -(-n_tiles // k), threads, k
+
+
 def occupancy_cf(rays_cf, bounds, tile: int, g: int = 1, plain: bool = False):
-    """K2: a thread a ray, a block of ``g`` tiles (``csrc/micro_occ.cu``)."""
+    """K2 (``csrc/micro_occ.cu``), launched as ``occupancy_launch`` gives.
+    ``g`` only keeps JAX's divisibility rule (n a multiple of tile * g):
+    on the card every g runs the same launch."""
     if plain or traversal._on_cpu(rays_cf):
         return occupancy_cf_plain(rays_cf, bounds, tile, g)
     _check_occupancy(rays_cf, bounds, tile, g)
@@ -107,7 +143,9 @@ def occupancy_cf(rays_cf, bounds, tile: int, g: int = 1, plain: bool = False):
     bounds = traversal._f32(bounds)
     n, c = rays_cf.shape[1], bounds.shape[1]
     occ = torch.empty((n // tile, c), dtype=torch.int32, device=rays_cf.device)
-    launch("occupancy_cf", rays_cf, bounds, n, c, tile, g, occ)
+    launch("occupancy_cf", rays_cf, bounds, n, c, tile,
+           *occupancy_launch(n, tile, traversal._sm_count(rays_cf.device)),
+           occ)
     return occ
 
 
@@ -178,10 +216,12 @@ def mixed_data(n: int, c: int, tile: int, seed: int = 1,
 # ---------------------------------------------------------------------------
 
 def run(device=None, n: int = N, c: int = C, tile: int = TILE,
-        groups=GROUPS, reps: int = 20, seed: int = 0, verbose: bool = True):
+        groups=GROUPS, reps: int = 20, seed: int = 0, verbose: bool = True,
+        launch_reps: int = LAUNCH_REPS):
     """Time every variant; returns one record a variant: ``variant``,
-    ``what``, ``ms`` (wall a call), ``device_ms`` (None on the CPU) and,
-    for v4, ``g``, ``data`` and ``ones`` (the share of 1s)."""
+    ``what``, ``ms`` (wall a call), ``device_ms`` (None on the CPU), for
+    v0, v0c and v1 ``us_a_launch`` (wall µs a call over ``launch_reps``
+    calls) and, for v4, ``g``, ``data`` and ``ones`` (the share of 1s)."""
     dev = resolve(device)
     card = common.header("micro_occ", dev, verbose)
     rays, rays_cf, bounds = (torch.as_tensor(a, device=dev)
@@ -200,21 +240,38 @@ def run(device=None, n: int = N, c: int = C, tile: int = TILE,
         if verbose:
             dev_txt = "not measured" if d_ms is None else f"{d_ms:9.5f} ms"
             ones = f"  ones {extra['ones']:.4f}" if "ones" in extra else ""
+            us = (f"  {extra['us_a_launch']:.3f} µs a launch (host, "
+                  f"{launch_reps} back to back)"
+                  if "us_a_launch" in extra else "")
             print(f"{variant:4s} {what:40s} {ms:9.5f} ms a call (wall), "
-                  f"device {dev_txt}{ones}", flush=True)
+                  f"device {dev_txt}{ones}{us}", flush=True)
 
-    time_variant("v0", "K1 add_one, one launch [8, 128]",
-                 lambda: add_one(small))
+    def host_us(fn):
+        return common.wall_s(fn, dev=dev, reps=launch_reps) * 1e6
+
+    def k1():
+        return add_one(small)
+
+    def torch_add():
+        return small + 1.0
+
+    def b1():
+        return traversal.cull(rays, bounds, tile)
+
+    time_variant("v0", "K1 add_one, one launch [8, 128]", k1,
+                 us_a_launch=host_us(k1))
     time_variant("v0b", "K1 add_one, two launches chained",
                  lambda: add_one(add_one(small)))
-    time_variant("v0c", "torch x + 1.0", lambda: small + 1.0)
-    time_variant("v1", f"B1 cull, {n} rays, {c} boxes, tile {tile}",
-                 lambda: traversal.cull(rays, bounds, tile))
+    time_variant("v0c", "torch x + 1.0", torch_add,
+                 us_a_launch=host_us(torch_add))
+    time_variant("v1", f"B1 cull, {n} rays, {c} boxes, tile {tile}", b1,
+                 us_a_launch=host_us(b1))
     for data, (rcf, bnd) in (("own", (rays_cf, bounds)),
                              ("mixed", (mixed_cf, mixed_bounds))):
         for g in groups:
             ones = float(occupancy_cf(rcf, bnd, tile, g).float().mean())
-            time_variant("v4", f"K2 occupancy_cf g={g}, {data} data",
+            time_variant("v4", f"K2 occupancy_cf g={g} (divisibility "
+                         f"only), {data} data",
                          lambda r=rcf, b=bnd, g=g: occupancy_cf(r, b, tile, g),
                          g=g, data=data, ones=ones)
     return records

@@ -142,11 +142,65 @@ def test_micro_occ_run_on_cpu():
     """Every variant's record, with finite positive wall times; device
     times are not measured on the CPU."""
     recs = micro_occ.run("cpu", n=8192, c=BOXES, tile=512, groups=(8, 16),
-                         reps=1, verbose=False)
+                         reps=1, verbose=False, launch_reps=2)
     assert [r["variant"] for r in recs] == ["v0", "v0b", "v0c", "v1"] + \
         ["v4"] * 4
     for r in recs:
         assert np.isfinite(r["ms"]) and r["ms"] > 0
         assert r["device_ms"] is None and r["device"] == "cpu"
+    for r in recs[0], recs[2], recs[3]:         # v0, v0c, v1
+        assert np.isfinite(r["us_a_launch"]) and r["us_a_launch"] > 0
     mixed = [r["ones"] for r in recs if r.get("data") == "mixed"]
     assert all(0.2 <= x <= 0.8 for x in mixed)
+
+
+@pytest.mark.parametrize("tile", [1, 6, 8, 32, 48, 128, 384, 512, 600, 4096])
+@pytest.mark.parametrize("n_tiles,sms", [(1, 132), (17, 132), (64, 132),
+                                         (4096, 132), (32768, 132),
+                                         (4096, 8)])
+def test_occupancy_launch_gives_each_tile_to_one_block(tile, n_tiles, sms):
+    """Block b takes tiles [b k, (b + 1) k): every tile is in exactly one
+    block and no block splits a tile; a block of several tiles covers them
+    in one pass of its threads, as the kernel requires."""
+    blocks, threads, k = micro_occ.occupancy_launch(n_tiles * tile, tile,
+                                                    sms)
+    rays = micro_occ.OCC_RAYS
+    assert 1 <= k <= 512 and blocks * k >= n_tiles > (blocks - 1) * k
+    assert threads % 32 == 0 and 32 <= threads <= micro_occ.OCC_MAX_THREADS
+    assert k == 1 or k * tile <= threads * rays
+    if tile <= micro_occ.OCC_BLOCK_RAYS:
+        assert threads * rays < k * tile + 32 * rays
+
+
+def test_occupancy_launch_fills_the_card_and_ignores_g(monkeypatch):
+    """At the tool's shape the grid has at least 2 blocks an SM; the
+    wrapper passes the same launch for every g (the launch is recorded
+    with the card's path forced on CPU tensors)."""
+    blocks, threads, k = micro_occ.occupancy_launch(262144, 512, 132)
+    assert blocks >= 264 and (blocks, threads, k) == (512, 128, 1)
+    for tile, n in ((8, 262144), (48, 196608)):
+        assert micro_occ.occupancy_launch(n, tile, 132)[0] >= 264
+    launches = []
+    monkeypatch.setattr(micro_occ, "launch",
+                        lambda name, *args: launches.append(args[2:-1]))
+    monkeypatch.setattr(traversal, "_on_cpu", lambda x: False)
+    monkeypatch.setattr(traversal, "_sm_count", lambda dev: 132)
+    rays_cf, bounds = micro_occ.mixed_data(N_RAYS, BOXES, 32, seed=3)
+    for g in (1, 8, 64):
+        micro_occ.occupancy_cf(torch.as_tensor(rays_cf),
+                               torch.as_tensor(bounds), 32, g)
+    want = (N_RAYS, BOXES, 32, *micro_occ.occupancy_launch(N_RAYS, 32, 132))
+    assert launches == [want] * 3
+
+
+def test_add_one_refuses_other_types_and_layouts_and_takes_odd_lengths():
+    x = torch.as_tensor(np.random.default_rng(1).normal(size=(8, 128))
+                        .astype(np.float32))
+    with pytest.raises(ValueError):
+        micro_occ.add_one(x.double())
+    with pytest.raises(ValueError):
+        micro_occ.add_one(x.T)
+    for view in (x.flatten()[1:], x.flatten()[:1023], x.flatten()[1:1025]):
+        np.testing.assert_array_equal(micro_occ.add_one_plain(view).numpy(),
+                                      view.numpy() + np.float32(1.0))
+        assert torch.equal(micro_occ.add_one(view), view + 1.0)
