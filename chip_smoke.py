@@ -10,7 +10,16 @@ Phases, one line each; the last line is printed only when all pass:
    nonzero without a CUDA device.
 2. Build: nvcc builds ``srt_tpu_torch/csrc`` into ``build/srt_tpu_torch``.
    With ``cuobjdump``, the instructions each bound counts from the SASS
-   (threefry's a point, K2's a slab test) are checked against the build.
+   are checked against the build: threefry's a point, and the ALU-pipe
+   and FMA-pipe instructions a unit of the hot loops of the slab-test
+   kernels B1, B3, B5, B6 and K2 and the Woop walks B2, B4 and B7
+   (``SASS_LOOPS``), none fewer than ``UNIT_OPS``.  (2b) Set-up: the host
+   runtime (``csrc/srt_native.cpp``) builds with the C++ compiler
+   (``native.available()`` must hold).  Phases 3 and 6 split their scene
+   builds' seconds (the mesh, the C++ BVH, the rest of
+   ``flatten_models``, ``mesh.upload``) and time the numpy builder
+   (``use_native="never"``) on the same mesh, whose tree must equal the
+   C++ one.
 3. Kernel vs plain PyTorch version, on the card, at the headline scene's
    tables (101,760 triangles, 50 superclusters) and 65,536 rays per case:
    outputs must be equal; median times of both.  B2 also at tile 32 on
@@ -479,45 +488,54 @@ FLOAT_OUTPUTS = {"cull": (1,), "intersect": (0,), "cull_pg2": (),
                  "pgwalk2_stream": (0,), "intersect_count": (0,),
                  "threefry": (0,), "cull_perray": (0,), "cull_gmask": (),
                  "pgwalk": (0,), "add_one": (0,), "occupancy_cf": ()}
-# Bounds: NVIDIA's H100 SXM data-sheet peaks and the
-# operations per unit of work, read from the CUDA sources: a slab test
-# (traversal_common.cuh ``slab``: 6 subtractions, 6 multiplies, 11
-# minima/maxima, 3 compares) per (ray, box); a Woop evaluation
-# (``woop_eval`` plus the walk's merge: 43 multiplies and adds, a
-# division, 8 compares, minima and sign operations) per (ray, triangle);
-# a threefry lattice point: the integer instructions per point of the
-# built kernel's SASS (``cuobjdump -sass``, sm_90a; ``threefry_sass_ops``
-# checks the two counts below against every build): 72 in all, 70 for the
-# 20 rounds of add, rotate and xor, the key injections and schedule and
-# the lattice index (21 LOP3, 20 SHF, 18 IMAD.IADD, 9 IADD3, a VIADD and
-# an IMAD) and 2 for the float (an xor and a LEA.HI); the per-thread index
-# division is the kernel's and not counted.  Which rate each counts
-# against: the slab tests and Woop evaluations are float operations, at
-# the FP32 rate (67 TFLOP/s, the only CUDA-core rate of the data sheet;
-# built with -fmad=false, no multiply-add fuses, so the card issues them
-# at most at half that rate).  Threefry's instructions split over two
-# pipes that issue side by side: LOP3, SHF, IADD3 and LEA on the integer
-# ALU pipe (52 a point), IMAD.IADD, IMAD and VIADD on the FMA pipe (20; a
-# VIADD counted there, where it makes the bound the smaller).  Each pipe
-# takes 64 lanes per SM a clock (Hopper white paper: 64 INT32 lanes; the
-# FMA pipe's integer half), 132 SMs x 64 x 1.98 GHz = 16.7 Tops/s, and a
-# point is bound by the busier pipe, the ALU's 52.  K2 (occupancy_cf) the
-# same way, from its box loop in the SASS (``occupancy_sass_ops``: one box
-# against a thread's 4 rays): FMNMX (min.NaN / max.NaN), FSETP, FSEL and
-# logic ops on the ALU pipe at 16.7 Tops/s, FADD and FMUL (no FFMA) on the
-# FMA pipe at 128 FP32 lanes an SM a clock (33.5 T instructions/s, half
-# the 67 TFLOP/s that counts a multiply-add as two); a test is bound by
-# the busier pipe.  B1, B3, B5 and B6 still count SLAB_OPS at 67 TFLOP/s.
+# Bounds: NVIDIA's H100 SXM data-sheet peaks and the instructions per unit
+# of work of the built kernels' SASS (``cuobjdump -sass``, sm_90a), each
+# checked against every build at phase 2.  Two pipes issue side by side,
+# and a unit of work is bound by the busier: the integer ALU pipe (64
+# lanes an SM a clock, Hopper white paper: 132 SMs x 64 x 1.98 GHz = 16.7
+# Tops/s), which also runs FMNMX (min.NaN / max.NaN), FSETP, FSEL, SEL,
+# LOP3, PLOP3 and SHF, and the FMA pipe at 128 FP32 lanes an SM a clock
+# (33.5 T instructions/s, half the 67 TFLOP/s that counts a multiply-add
+# as two), which runs FADD, FMUL and FFMA (built with -fmad=false, so no
+# multiply and add fuse; the FFMA are the IEEE division's).  A threefry
+# lattice point (``threefry_sass_ops``): 72 integer instructions, 70 for
+# the 20 rounds of add, rotate and xor, the key injections and schedule
+# and the lattice index (21 LOP3, 20 SHF, 18 IMAD.IADD, 9 IADD3, a VIADD
+# and an IMAD) and 2 for the float (an xor and a LEA.HI), the per-thread
+# index division not counted; LOP3, SHF, IADD3 and LEA on the ALU pipe
+# (52 a point), IMAD.IADD, IMAD and VIADD on the FMA pipe (20).  A slab
+# test (B1, B3, B5, B6, K2 and B2's cluster boxes) and a Woop evaluation
+# (B2, B4, B7) count, for every kernel alike, the fewest instructions a
+# unit on each pipe that any kernel's hot loop reaches in the SASS
+# (``loop_sass_ops``): a slab test 14 ALU and 12 FMA (B1's loop; as many
+# as the test's own operations in traversal_common.cuh ``slab``: 11
+# minima and maxima and 3 compares, 6 subtractions and 6 multiplies); a
+# Woop evaluation 11 ALU (B2's loop) and 46 FMA (B4's and B7's, the
+# division's FFMA among them).  Phase 2 checks that every kernel of SASS_LOOPS
+# issues at least these counts a unit; a kernel that issues more is
+# slower against the same bound.
 PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = 67e12
 PEAK_INT32_OPS_S = 132 * 64 * 1.98e9
-PEAK_FP32_INSTR_S = PEAK_OPS_S / 2
-SLAB_OPS = 26
-WOOP_OPS = 52
+PEAK_FP32_INSTR_S = 67e12 / 2
 THREEFRY_ALU_OPS, THREEFRY_FMA_OPS = 52, 20
-# K2's instructions a box iteration of its OCC_SASS_RAYS rays a thread (as
-# many slab tests) in the vector-path kernel: ALU, FMA.
-OCC_SASS_RAYS, OCC_ALU_OPS, OCC_FMA_OPS = 4, 65, 48
+# unit: (ALU-pipe, FMA-pipe) instructions a unit of work.
+UNIT_OPS = {"slab": (14, 12), "woop": (11, 46)}
+# kernel: ((mangled-name fragment, unit), ...): the instances whose hot
+# loop phase 2 holds against UNIT_OPS.
+SASS_LOOPS = {
+    "cull": (("11cull_kernelILi1E", "slab"), ("11cull_kernelILi2E", "slab")),
+    "cull_perray": (("18cull_perray_kernel", "slab"),),
+    "cull_gmask": (("17cull_gmask_kernel", "slab"),),
+    "cull_pg2": (("15cull_pg2_kernelILi256E", "slab"),
+                 ("15cull_pg2_kernelILi1024E", "slab")),
+    "intersect": (("16intersect_kernelILb0E", "slab"),
+                  ("16intersect_kernelILb0E", "woop")),
+    "intersect_count": (("16intersect_kernelILb1E", "slab"),
+                        ("16intersect_kernelILb1E", "woop")),
+    "pgwalk2": (("14pgwalk2_kernel", "woop"),),
+    "pgwalk": (("13pgwalk_kernel", "woop"),),
+    "occupancy_cf": (("19occupancy_cf_kernelILb1E", "slab"),),
+}
 
 
 class SmokeFailure(Exception):
@@ -653,14 +671,59 @@ def compare(name, case, k_out, p_out):
     return max(errs)
 
 
-def build_scene(device, rows, cols):
+def build_scene(device, rows, cols, compare=False):
+    """``uv_sphere(rows, cols, radius=2.0)`` through its BVH build (the C++
+    builder at this size), ``flatten_models`` and ``mesh.upload``: the
+    scene and a printable split of the seconds.  With ``compare``, also
+    the numpy builder (``use_native="never"``) on the same triangles,
+    timed, whose tree must equal the C++ one."""
+    import numpy as np
+
     from srt_tpu_torch.models import mesh
+    from srt_tpu_torch.utils.bvh import build_bvh, triangle_bvh
     from srt_tpu_torch.utils.flatten import flatten_models
     from srt_tpu_torch.utils.procgen import uv_sphere
     t0 = time.perf_counter()
-    scene = mesh.upload(flatten_models([uv_sphere(rows, cols, radius=2.0)],
-                                       pad_to=128), device=device)
-    return scene, time.perf_counter() - t0
+    m = uv_sphere(rows, cols, radius=2.0)
+    t1 = time.perf_counter()
+    bvh = triangle_bvh(m.positions, m.tri_vidx)
+    t2 = time.perf_counter()
+    flat = flatten_models([m], bvhs=[bvh], pad_to=128)
+    t3 = time.perf_counter()
+    scene = mesh.upload(flat, device=device)
+    t4 = time.perf_counter()
+    text = (f"built in {t4 - t0:.3f} s: uv_sphere {t1 - t0:.3f} s, "
+            f"C++ BVH {t2 - t1:.4f} s, the rest of flatten_models "
+            f"{t3 - t2:.3f} s, mesh.upload {t4 - t3:.3f} s")
+    if compare:
+        v0, v1, v2 = (m.positions[m.tri_vidx[:, i]] for i in range(3))
+        t5 = time.perf_counter()
+        ref = build_bvh((v0 + v1 + v2) / 3.0,
+                        np.minimum(np.minimum(v0, v1), v2),
+                        np.maximum(np.maximum(v0, v1), v2),
+                        use_native="never")
+        t6 = time.perf_counter()
+        for f in ("node_min", "node_max", "node_first", "node_count",
+                  "prim_order"):
+            a, b = getattr(bvh, f), getattr(ref, f)
+            check(a.dtype == b.dtype and np.array_equal(a, b),
+                  f"uv_sphere({rows}, {cols}): the C++ BVH's {f} differs "
+                  f"from the numpy one")
+        text += (f"; numpy BVH (use_native=\"never\") {t6 - t5:.3f} s, "
+                 f"{bvh.num_nodes} nodes, equal trees")
+    return scene, text
+
+
+def phase_setup(card):
+    """Phase 2b: the host runtime.  ``native.available()`` on this
+    machine and the library's build."""
+    from srt_tpu_torch.utils import native
+    check(native.available(), "native.available() is False: no C++ compiler "
+                              "on PATH, or SRT_NO_NATIVE set")
+    t0 = time.perf_counter()
+    native.load()
+    print(f"[2b] set-up: host runtime (csrc/srt_native.cpp) built and "
+          f"loaded in {time.perf_counter() - t0:.3f} s [{card}]", flush=True)
 
 
 def primary_rays(scene, size, tile):
@@ -803,17 +866,27 @@ def sass_of(lib_path):
                           text=True, timeout=300).stdout
 
 
-def occupancy_sass_ops(sass):
-    """(ALU-pipe, FMA-pipe) instructions of K2's box loop (one box against
-    a thread's rays) in the vector-path kernel's SASS: the loop is the
-    backward branch's body with the most FMNMX; FMNMX, FSETP, FSEL, SEL,
-    LOP3, PLOP3 and SHF count on the ALU pipe, FADD, FMUL and FFMA on the
-    FMA pipe; loop counters, loads and branches are not counted."""
+ALU_PIPE = ("FMNMX", "FSETP", "FSEL", "SEL", "LOP3", "PLOP3", "SHF")
+FMA_PIPE = ("FADD", "FMUL", "FFMA")
+
+
+def loop_sass_ops(sass, function, unit):
+    """(ALU-pipe, FMA-pipe, units) of one iteration of the hot loop of the
+    kernel whose mangled name holds ``function``, in the built library's
+    SASS: among its innermost loops with float work (a backward branch's
+    body with FMUL in it, no EXIT, which marks a branch back from the
+    divergent-warp code after the kernel's end, and no other such loop
+    inside), the one with the most FMNMX for slab tests (``unit`` "slab":
+    6 FMUL a test) or the most MUFU for Woop evaluations ("woop": one
+    reciprocal each).  ALU_PIPE and
+    FMA_PIPE are counted; loop counters, address arithmetic, integer
+    compares, loads, stores, branches, warp reductions and the reciprocal
+    (MUFU) are not, so the bound stays a least time."""
+    import collections
     import re
     fun = next(f for f in sass.split("Function : ")[1:]
-               if "19occupancy_cf_kernelILb1EE" in f.split(None, 1)[0])
-    addr, labels, ops = {}, {}, []
-    pending = []
+               if function in f.split(None, 1)[0])
+    labels, ops, pending = {}, [], []
     for ln in fun.splitlines():
         lab = re.match(r"\s*(\.L_x_\d+):", ln)
         if lab:
@@ -826,26 +899,34 @@ def occupancy_sass_ops(sass):
                 labels[name] = a
             pending = []
             ops.append((a, m.group(2).strip()))
-    for i, (a, _) in enumerate(ops):
-        addr[a] = i
-    best = None
+    index = {a: i for i, (a, _) in enumerate(ops)}
+    loops = []  # (first, last) instruction of each loop with float work
     for i, (a, text) in enumerate(ops):
         m = re.search(r"BRA\s+(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))", text)
         if not m:
             continue
         target = labels.get(m.group(1)) if m.group(1) else int(m.group(2), 16)
-        if target is None or target >= a or target not in addr:
+        if target is None or target >= a or target not in index:
             continue
         body = [re.sub(r"^@!?U?P[T0-9]\s+", "", t).split()[0]
-                for _, t in ops[addr[target]:i]]
-        fmnmx = sum(op.startswith("FMNMX") for op in body)
-        if best is None or fmnmx > best[0]:
-            best = (fmnmx, body)
+                for _, t in ops[index[target]:i]]
+        if "FMUL" in body and "EXIT" not in body:
+            loops.append((index[target], i))
+    best = None
+    for lo, hi in loops:
+        if any((l2, h2) != (lo, hi) and lo <= l2 and h2 <= hi
+               for l2, h2 in loops):
+            continue
+        body = collections.Counter(
+            re.sub(r"^@!?U?P[T0-9]\s+", "", t).split()[0].split(".")[0]
+            for _, t in ops[lo:hi + 1])
+        score = body["FMNMX" if unit == "slab" else "MUFU"]
+        if best is None or score > best[0]:
+            best = (score, body)
     body = best[1]
-    alu = sum(op.split(".")[0] in ("FMNMX", "FSETP", "FSEL", "SEL", "LOP3",
-                                   "PLOP3", "SHF") for op in body)
-    fma = sum(op.split(".")[0] in ("FADD", "FMUL", "FFMA") for op in body)
-    return alu, fma
+    units = body["FMUL"] // 6 if unit == "slab" else body["MUFU"]
+    return (sum(body[op] for op in ALU_PIPE),
+            sum(body[op] for op in FMA_PIPE), units)
 
 
 def pgwalk_split(mask, rays8, woop, any_hit):
@@ -910,59 +991,62 @@ def intersect_lanes(rays8, tile):
 def bound_of(name, args, out):
     """(bound_ms, bound_by, work) of one kernel call: the larger of the
     bytes its tensor inputs and outputs must move (each once) over the
-    card's memory rate and the operations these inputs need over its FP32
-    rate (threefry, K2: their busier pipe's instructions over that
-    pipe's rate); ``work`` says what was counted.  The
-    walks count the clusters
-    their gates admit on these inputs (B2: B2c's counters on the same
-    call; B4, B7: the set bits of the words they walk); B1 and B5 count
-    the live rays' super slab tests, B3 and B6 the tests of a two-level
-    cull (``cull_tests``)."""
+    card's memory rate and the instructions these inputs need on the
+    busier of the ALU and FMA pipes over that pipe's rate (UNIT_OPS,
+    THREEFRY_*_OPS; K1 one FADD an element); ``work`` says what was
+    counted.  The walks count the clusters their gates admit on these
+    inputs (B2: B2c's counters on the same call, 16 box tests a super
+    processed and 128 Woop evaluations a ray a cluster evaluated; B4, B7:
+    the set bits of the words they walk); B1 and B5 count the live rays'
+    super slab tests, B3 and B6 the tests of a two-level cull
+    (``cull_tests``), K2 a slab test per (ray, box)."""
     import torch
 
     from srt_tpu_torch.ops import traversal as tr
     out = as_tuple(out)
     moved = nbytes(*[v for v in args.values() if torch.is_tensor(v)], *out)
-    work = ""
-    peak = PEAK_OPS_S
+    units, work = {}, ""
     if name == "threefry":
-        ops = out[0].numel() * max(THREEFRY_ALU_OPS, THREEFRY_FMA_OPS)
-        peak = PEAK_INT32_OPS_S
+        # Integers on both pipes, each at 64 lanes: the busier binds.
+        alu = out[0].numel() * max(THREEFRY_ALU_OPS, THREEFRY_FMA_OPS)
+        fma = 0.0
     elif name == "add_one":
-        ops = out[0].numel()
+        alu, fma = 0.0, out[0].numel()
     elif name == "occupancy_cf":
-        # The 7 used rows of rays_cf, the 6 box rows and the output once;
-        # a slab test per (ray, box) on the busier of its two pipes.
+        # The 7 used rows of rays_cf, the 6 box rows and the output once.
         n, c = args["rays_cf"].shape[1], args["bounds"].shape[1]
         moved = (7 * n + 6 * c) * 4 + nbytes(out[0])
-        alu, fma = OCC_ALU_OPS / OCC_SASS_RAYS, OCC_FMA_OPS / OCC_SASS_RAYS
-        ops, peak = max((n * c * alu, PEAK_INT32_OPS_S),
-                        (n * c * fma, PEAK_FP32_INSTR_S),
-                        key=lambda p: p[0] / p[1])
-        work = (f"{n * c} slab tests, {alu} ALU-pipe and {fma} FMA-pipe "
-                f"instructions each")
+        units["slab"] = n * c
+        work = f"{n * c} slab tests"
     else:
         live = int((args["rays8"][:, 6] > 0).sum())
     if name in ("cull", "cull_perray"):
-        ops = live * args["sbounds"].shape[1] * SLAB_OPS
-        if name == "cull_perray":
-            work = f"{live * args['sbounds'].shape[1]} super tests"
+        units["slab"] = live * args["sbounds"].shape[1]
+        work = f"{units['slab']} super tests"
     elif name in ("cull_pg2", "cull_gmask"):
         supers, clusters = cull_tests(args)
-        ops = (supers + clusters) * SLAB_OPS
+        units["slab"] = supers + clusters
         work = f"{supers} super + {clusters} cluster tests"
     elif name.startswith("intersect"):
         supers, clusters = walk_counts(name, args, out)
-        ops = args["tile"] * (supers * tr.SUPER * SLAB_OPS
-                              + clusters * tr.CLUSTER * WOOP_OPS)
+        units["slab"] = args["tile"] * supers * tr.SUPER
+        units["woop"] = args["tile"] * clusters * tr.CLUSTER
         work = (f"{supers} supers processed, {clusters} clusters evaluated, "
                 f"L={intersect_lanes(args['rays8'], args['tile'])}")
     elif name.startswith("pgwalk2"):
-        ops = (listed_clusters(args["clist"], args["bits"], args["counts"])
-               * args["group"] * tr.CLUSTER * WOOP_OPS)
+        units["woop"] = (listed_clusters(args["clist"], args["bits"],
+                                         args["counts"])
+                         * args["group"] * tr.CLUSTER)
     elif name == "pgwalk":
-        ops = popcount(args["mask"]) * tr.GROUP * tr.CLUSTER * WOOP_OPS
-    b_ms, o_ms = moved / PEAK_BYTES_S * 1e3, ops / peak * 1e3
+        units["woop"] = popcount(args["mask"]) * tr.GROUP * tr.CLUSTER
+    if units:
+        alu = sum(n * UNIT_OPS[u][0] for u, n in units.items())
+        fma = sum(n * UNIT_OPS[u][1] for u, n in units.items())
+        work = ", ".join(([work] if work else []) + [
+            f"{n} {u} units of {UNIT_OPS[u][0]} ALU + {UNIT_OPS[u][1]} FMA "
+            f"instructions" for u, n in units.items()])
+    b_ms = moved / PEAK_BYTES_S * 1e3
+    o_ms = max(alu / PEAK_INT32_OPS_S, fma / PEAK_FP32_INSTR_S) * 1e3
     return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations", work
 
 
@@ -2234,7 +2318,7 @@ def phase_grad(scene, cases, profile, dev):
     for label, d, method in (("card walk", dev, "walk"),
                              ("CPU walk", cpu, "walk"),
                              ("card dense", dev, "dense")):
-        small, _ = build_scene(d, *GRAD_SMALL_SPHERE)
+        small = build_scene(d, *GRAD_SMALL_SPHERE)[0]
         image, _ = mesh_loss(small, model_scene_lights(d), cam, cfg6, method)
         params = (small.mat_diffuse, small.positions)
         with torch.no_grad():
@@ -2753,7 +2837,7 @@ def phase_app(scene, cases, profile, dev):
     for rows_cols in (PARITY11_SPHERE, SESSION_PARITY_SPHERE):
         got = {}
         for d_ in (dev, cpu):
-            sc, _ = build_scene(d_, *rows_cols)
+            sc = build_scene(d_, *rows_cols)[0]
             s = app.RenderSession(
                 None, model_scene_lights(d_),
                 CameraConfig(width=PARITY12_SIZE, height=PARITY12_SIZE,
@@ -3203,7 +3287,7 @@ def sharded_rank(rank, world, device, sphere, walk_size, c7_size):
     torch.backends.cudnn.allow_tf32 = False
     dev = rank_device(device)
     mesh = device_mesh(world, 1, device=device)
-    scene, _ = build_scene(dev, *sphere)
+    scene = build_scene(dev, *sphere)[0]
     lights = model_scene_lights(dev)
     key = rng.key(14, dev)
     tr.reset_launch_counts()
@@ -3879,35 +3963,46 @@ def main(argv=None) -> int:
     for ln in ptxas:
         print(f"[2] {ln.strip()}", flush=True)
     sass = sass_of(lib.path)
-    for label, count, want in (
-            ("threefry", threefry_sass_ops, (THREEFRY_ALU_OPS,
-                                             THREEFRY_FMA_OPS)),
-            ("occupancy_cf", occupancy_sass_ops, (OCC_ALU_OPS,
-                                                  OCC_FMA_OPS))):
-        got = count(sass) if sass else None
-        check(got in (None, want), f"{label}'s SASS has {got} (ALU, FMA) "
-                                   f"instructions where its bound counts "
-                                   f"{want}")
-        print(f"[2] {label}: {want} (ALU-pipe, FMA-pipe) instructions "
-              f"counted by its bound, "
-              f"{'checked in the SASS' if sass else 'not checked (no cuobjdump)'}",
-              flush=True)
+    checked = "checked in the SASS" if sass else "not checked (no cuobjdump)"
+    got = threefry_sass_ops(sass) if sass else None
+    want = (THREEFRY_ALU_OPS, THREEFRY_FMA_OPS)
+    check(got in (None, want), f"threefry's SASS has {got} (ALU, FMA) "
+                               f"instructions a point where its bound "
+                               f"counts {want}")
+    print(f"[2] threefry: {want} (ALU-pipe, FMA-pipe) instructions a point, "
+          f"{checked}", flush=True)
+    for label, loops in SASS_LOOPS.items():
+        for function, unit in loops:
+            want = UNIT_OPS[unit]
+            if not sass:
+                print(f"[2] {label} ({function}): not checked (no "
+                      f"cuobjdump)", flush=True)
+                continue
+            alu, fma, n = loop_sass_ops(sass, function, unit)
+            check(n > 0 and alu >= want[0] * n and fma >= want[1] * n,
+                  f"{label} ({function}): its SASS's hot loop issues {alu} "
+                  f"ALU-pipe and {fma} FMA-pipe instructions for {n} {unit} "
+                  f"units, fewer than the {want} a unit its bound counts")
+            print(f"[2] {label} ({function}): {alu / n:g} ALU-pipe and "
+                  f"{fma / n:g} FMA-pipe instructions a {unit} unit in the "
+                  f"SASS ({alu}, {fma} a loop of {n}); the bound counts "
+                  f"{want[0]} and {want[1]}", flush=True)
 
     dev = torch.device("cuda", 0)
     cases = Cases(card)
     if args.profile and os.path.exists(args.profile):
         os.remove(args.profile)
-    scene, secs = build_scene(dev, *HEADLINE_SPHERE)
+    phase_setup(card)
+    scene, secs = build_scene(dev, *HEADLINE_SPHERE, compare=True)
     print(f"[3] headline scene: {scene.woop.shape[0]} clusters, "
-          f"{scene.num_triangles} triangles, built in {secs:.3f} s",
-          flush=True)
+          f"{scene.num_triangles} triangles, {secs}  [{card}]", flush=True)
     phase_kernels(scene, cases)
     plan = phase_render(scene, cases, args.profile)
     phase_parity(scene, plan, card)
 
-    scene8, secs = build_scene(dev, *CONFIG8_SPHERE)
+    scene8, secs = build_scene(dev, *CONFIG8_SPHERE, compare=True)
     print(f"[6] config8 scene: {scene8.woop.shape[0]} clusters, "
-          f"{scene8.model_tri_count[0]} triangles, built in {secs:.3f} s",
+          f"{scene8.model_tri_count[0]} triangles, {secs}  [{card}]",
           flush=True)
     phase_config8(scene8, scene, cases, args.profile)
     phase_counters({"headline": (scene, HEADLINE_SIZE),

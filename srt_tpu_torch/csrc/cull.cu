@@ -6,7 +6,8 @@
 // that enter before their t_max, and write the entered supers ordered by
 // (entry, index) with a count.  Unused list slots hold 0.
 //
-// What bounds it: S slab tests (26 operations each) per live ray; the
+// What bounds it: S slab tests per live ray (14 ALU-pipe instructions
+// each in the SASS, ALU-bound; chip_smoke.py phase 2); the
 // rank of S supers per tile and the lists' bytes are small beside them.
 // What held the first design (one thread per ray; per super, six global
 // box loads, a five-step shuffle minimum and a shared atomicMin; then one

@@ -9,7 +9,8 @@
 // 16*s + k): mask [Np/8, S] int32.  Padding clusters carry NaN boxes and
 // set no bit.
 //
-// What bounds it: the slab tests (~26 operations each) a two-level cull
+// What bounds it: the slab tests (14.4 ALU-pipe instructions each in
+// the SASS, ALU-bound; chip_smoke.py phase 2) a two-level cull
 // needs, S super tests per live ray and 16 cluster tests per (live ray,
 // super it enters); on launches of few live rays, the rays read and the S
 // words written per group.  What held the first design (one thread per

@@ -7,10 +7,10 @@
 // minimum entry max(t_near, 0) over the group's rays that enter it before
 // their t_max, else BIG: e [Np/8, S] f32.
 //
-// What bounds it: S slab tests (~26 operations each) per live ray against
-// the rays read and 4 bytes written per group and super: at the
-// headline's S = 50 the bytes, on paper; -fmad=false and 30-odd
-// instructions a test make it issue-bound in practice.  What held the
+// What bounds it: S slab tests (14.6 ALU-pipe instructions each in the
+// SASS, ALU-bound; chip_smoke.py phase 2) per live ray, above the
+// rays read and 4 bytes written per group and super even at the
+// headline's S = 50.  What held the
 // first design (one thread per ray, a three-step shuffle-and-fminf chain
 // per super, one lane in eight storing S scattered floats, and 16 blocks
 // on 132 SMs for a 4,096-ray launch) back, and what this one does:

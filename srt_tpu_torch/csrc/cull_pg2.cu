@@ -8,7 +8,8 @@
 // list the supers with a nonzero word in ascending index, with the words
 // and a count.  Unused slots hold 0.
 //
-// What bounds it: the slab tests (~26 operations each) the rays need, and
+// What bounds it: the slab tests (15.5 ALU-pipe instructions each in the
+// SASS, ALU-bound; chip_smoke.py phase 2) the rays need, and
 // for groups with few live rays the 2*S list and word slots written per
 // group.  What held the first design (one thread per ray testing all 16*S
 // clusters, a block barrier and a shared atomicOr per super when G > 32,

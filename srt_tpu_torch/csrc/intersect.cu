@@ -16,9 +16,11 @@
 // smallest index; the TPU gives same-lane cross-super exact-t ties to the
 // nearest-entry super instead (ROADMAP.md section C, measure zero).
 //
-// What bounds it: ~52 operations per (ray, triangle) of the admitted
-// clusters and 26 per cluster slab test; each admitted cluster's 13 Woop
-// rows (6,656 bytes) are read once per tile.  What held the first design
+// What bounds it: 47 FMA-pipe instructions per (ray, triangle) of the
+// admitted clusters (FADD, FMUL and the division's FFMA in the SASS,
+// FMA-bound; chip_smoke.py phase 2) and 17 ALU-pipe per cluster slab
+// test; each admitted cluster's 13 Woop rows (6,656 bytes) are read once
+// per tile.  What held the first design
 // (one block of `tile` threads, one thread per ray evaluating all 128
 // triangles of every admitted cluster as one serial chain; a cooperative
 // copy between two barriers per cluster in the resident mode, a

@@ -11,9 +11,9 @@
 // candidates with t < t_max, which does not depend on the order of
 // evaluation, so the work may be split any way.
 //
-// What bounds it: ~52 operations (43 multiplies and adds, a division, and
-// eight compares, minima and sign operations) per (ray, triangle) over
-// the group's set clusters.  What held the first design (one warp per
+// What bounds it: 46 FMA-pipe instructions (FADD, FMUL and the
+// division's FFMA in the SASS, FMA-bound; chip_smoke.py phase 2) per
+// (ray, triangle) over the group's set clusters.  What held the first design (one warp per
 // group, every set cluster of its mask one serial chain per lane, Woop
 // rows read from global memory through L1 by each group alone) back, and
 // what this one does:

@@ -13,9 +13,10 @@
 // any way; the TPU's W-wide unrolled evaluation (an ILP knob) has no
 // counterpart.
 //
-// What bounds it: ~52 operations (a Woop evaluation and the merge) per
-// (ray, triangle) over the group's listed clusters; each cluster's 13
-// Woop rows (6,656 bytes) are read once per group.  What held the first
+// What bounds it: 46 FMA-pipe instructions (a Woop evaluation in the
+// SASS, FMA-bound; chip_smoke.py phase 2) per (ray, triangle) over
+// the group's listed clusters; each cluster's 13 Woop rows (6,656 bytes)
+// are read once per group.  What held the first
 // design (one block of G threads per group, each thread all 128
 // triangles of every cluster in series) back, and what this one does:
 //

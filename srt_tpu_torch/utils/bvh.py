@@ -1,11 +1,13 @@
-"""Host-side BVH construction (numpy): counterpart of
-``srt_tpu/utils/bvh.py`` without the native-builder dispatch.
+"""Host-side BVH construction: counterpart of ``srt_tpu/utils/bvh.py``.
 
 Midpoint split on the longest axis, leaf at <= ``leaf_size`` primitives or
 a degenerate split, stable partition, primitives reordered to match leaf
 ranges, children always adjacent (left, left+1).  The same algorithm as the
-JAX package's numpy builder, so the trees are identical; the 101,760-
-triangle headline scene builds in seconds.
+JAX package's numpy builder, so the trees are identical.  ``build_bvh``
+sends 1,024 or more primitives to the C++ builder (``utils/native.py``,
+``csrc/srt_native.cpp``: the same trees, faster; ``chip_smoke.py``'s
+phases 3 and 6 time both) when ``native.available()``, as the JAX
+package does; the numpy builder stays the reference and takes the rest.
 """
 
 from __future__ import annotations
@@ -37,12 +39,25 @@ class FlatBVH:
         return self.node_first.shape[0]
 
 
+# The least primitive count that ``build_bvh(use_native="auto")`` sends to
+# the C++ builder (the JAX package's).
+NATIVE_MIN_PRIMS = 1024
+
+
 def build_bvh(centers: np.ndarray, bounds_min: np.ndarray,
-              bounds_max: np.ndarray, leaf_size: int = 2) -> FlatBVH:
+              bounds_max: np.ndarray, leaf_size: int = 2,
+              use_native: str = "auto") -> FlatBVH:
     """Build a midpoint-split BVH over primitives.
 
     centers: [T, 3]; bounds_min/bounds_max: [T, 3] per-primitive AABBs.
+    ``use_native="auto"`` takes the C++ builder at ``NATIVE_MIN_PRIMS`` or
+    more primitives when ``native.available()``; "never" the numpy one.
     """
+    if use_native == "auto" and centers.shape[0] >= NATIVE_MIN_PRIMS:
+        from srt_tpu_torch.utils.native import build_bvh_native
+        bvh = build_bvh_native(centers, bounds_min, bounds_max, leaf_size)
+        if bvh is not None:
+            return bvh
     t = centers.shape[0]
     if t == 0:
         raise ValueError("cannot build a BVH over zero primitives")

@@ -228,9 +228,10 @@ def test_port_imports_no_jax():
     texture sampling, the emitter tables and the app layer (``app``,
     checkpoints, tonemapping, validation, profiling, image files), the
     sharded renders (``parallel``) and the entry points (the numpy oracle,
-    ``bench``, ``bench_suite``, the tools) and every measurement tool
-    (``tools.*``) among them, imports without JAX, optax or the JAX
-    package."""
+    ``bench``, ``bench_suite``, the tools), every measurement tool
+    (``tools.*``) and the host runtime (``utils.native``) among them,
+    imports without JAX, optax or the JAX package; so does the host
+    runtime's C++ BVH build, where a C++ compiler is on ``PATH``."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import srt_tpu_torch\n"
@@ -245,7 +246,7 @@ def test_port_imports_no_jax():
         "          'utils.image', 'parallel.mesh', 'parallel.render_sharded',\n"
         "          'parallel.multihost', 'models.reference_cpu', 'bench',\n"
         "          'bench_suite', 'tools.render_demo',\n"
-        "          'tools.interactive_session'):\n"
+        "          'tools.interactive_session', 'utils.native'):\n"
         "    assert 'srt_tpu_torch.' + m in mods, mods\n"
         "for m in ('common', 'micro_occ', 'wavefronts', 'eval_counts',\n"
         "          'profile_bounces', 'profile_breakdown', 'profile_bench',\n"
@@ -256,6 +257,11 @@ def test_port_imports_no_jax():
         "          'micro_binned', 'micro_footprint', 'micro_sortkeys',\n"
         "          'multihost_2proc'):\n"
         "    assert 'srt_tpu_torch.tools.' + m in mods, mods\n"
+        "import numpy as np\n"
+        "from srt_tpu_torch.utils import bvh, native\n"
+        "if native.available():\n"
+        "    c = np.random.default_rng(0).random((1024, 3), np.float32)\n"
+        "    assert bvh.build_bvh(c, c, c).num_nodes > 1\n"
         "bad = [m for m in sys.modules\n"
         "       if m in ('jax', 'optax', 'srt_tpu')\n"
         "       or m.startswith(('jax.', 'optax.', 'srt_tpu.'))]\n"
