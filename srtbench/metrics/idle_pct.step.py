@@ -1,0 +1,12 @@
+"""Share of the traced window with no device operation running, steps
+back to back, in %."""
+
+UNIT = "%"
+LAYER = "device"
+MOVES = "step_s"
+
+
+def read(r):
+    if r.trace is None or r.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - r.trace.busy_s / r.trace.window_s)
