@@ -32,6 +32,7 @@ from srt_tpu_torch.models.wavefront_compact import (discover_schedule,
                                                     trace_image_compact)
 from srt_tpu_torch.ops import rng
 from srt_tpu_torch.scene import Lights
+from srt_tpu_torch.utils.profiling import span
 
 
 def parse_walk(tok: str):
@@ -123,11 +124,12 @@ class RenderPlan:
     emitters: Optional[Emitters] = None
 
     def render(self, key: torch.Tensor):
-        n = self.cam.width * self.cam.height * self.cfg.spp
-        return trace_image_compact(self.hit_fns, self.lights, self.cam,
-                                   self.cfg, rng.KeyStream(key, n),
-                                   self.schedule, return_stats=True,
-                                   emitters=self.emitters)
+        with span("srt.render"):
+            n = self.cam.width * self.cam.height * self.cfg.spp
+            return trace_image_compact(self.hit_fns, self.lights, self.cam,
+                                       self.cfg, rng.KeyStream(key, n),
+                                       self.schedule, return_stats=True,
+                                       emitters=self.emitters)
 
 
 def make_render_plan(scene, lights: Lights, cam: CameraConfig,
@@ -145,28 +147,29 @@ def make_render_plan(scene, lights: Lights, cam: CameraConfig,
     schedule.  With ``cfg.nee`` the plan builds the scene's emitter
     tables (``scene_emitters``) and hands them to the probe and to every
     frame."""
-    method = method or "walk"
-    cfg = cfg or RenderConfig(max_depth=4, rr_bounces=0)
-    on_walk = method == "walk"
-    n_bounces = cfg.max_depth + cfg.rr_bounces
-    cfg = dataclasses.replace(cfg, sort_bounces=on_walk and n_bounces > 1,
-                              uniform_use_spec=True)
-    if on_walk and cfg.sort_shadows_from is None:
-        cfg = dataclasses.replace(cfg, sort_shadows_from=2)
-    if key is None:
-        key = rng.key(0, device=scene.device)
+    with span("srt.setup.plan"):
+        method = method or "walk"
+        cfg = cfg or RenderConfig(max_depth=4, rr_bounces=0)
+        on_walk = method == "walk"
+        n_bounces = cfg.max_depth + cfg.rr_bounces
+        cfg = dataclasses.replace(cfg, sort_bounces=on_walk and n_bounces > 1,
+                                  uniform_use_spec=True)
+        if on_walk and cfg.sort_shadows_from is None:
+            cfg = dataclasses.replace(cfg, sort_shadows_from=2)
+        if key is None:
+            key = rng.key(0, device=scene.device)
 
-    if on_walk:
-        dw, dws = default_walks(scene, n_bounces)
-        if walks is not None:
-            dw = parse_walks(walks, n_bounces)
-        if walks_shadow is not None:
-            dws = parse_walks(walks_shadow, n_bounces)
-        hit_fns = build_hit_fns(scene, dw, dws, method=method)
-    else:
-        hit_fns = build_hit_fns(scene, None, None, method=method)
-    emitters = scene_emitters(scene) if cfg.nee else None
-    schedule = discover_schedule(hit_fns, lights, cam, cfg, key,
-                                 emitters=emitters)
-    return RenderPlan(cam=cam, cfg=cfg, schedule=schedule, hit_fns=hit_fns,
-                      lights=lights, emitters=emitters)
+        if on_walk:
+            dw, dws = default_walks(scene, n_bounces)
+            if walks is not None:
+                dw = parse_walks(walks, n_bounces)
+            if walks_shadow is not None:
+                dws = parse_walks(walks_shadow, n_bounces)
+            hit_fns = build_hit_fns(scene, dw, dws, method=method)
+        else:
+            hit_fns = build_hit_fns(scene, None, None, method=method)
+        emitters = scene_emitters(scene) if cfg.nee else None
+        schedule = discover_schedule(hit_fns, lights, cam, cfg, key,
+                                     emitters=emitters)
+        return RenderPlan(cam=cam, cfg=cfg, schedule=schedule, hit_fns=hit_fns,
+                          lights=lights, emitters=emitters)

@@ -53,6 +53,7 @@ from srt_tpu_torch.ops.morton import (PermutedStream, morton_perm,
 from srt_tpu_torch.ops.safemath import absolute, clip, maximum
 from srt_tpu_torch.ops.vec import bc
 from srt_tpu_torch.scene import Lights, Materials, Spheres
+from srt_tpu_torch.utils.profiling import span
 
 # MIS sentinel: "this direction was not density-sampled" (primary rays,
 # delta-specular bounces).  Large against any real area pdf, and far
@@ -301,191 +302,200 @@ def bounce_step(closest_hit, lights: Lights, cfg: RenderConfig, carry,
     segment keeps the binary test either way.  ``return_aux=True``
     (requires ``sort=False``) also returns ``{"take_spec", "rough",
     "hit", "t"}`` of this bounce, in the slice's input order."""
-    nee_on = emitters is not None and cfg.nee
-    origins, dirs, throughput, color, alive, pix = carry[:6]
-    k = 6
-    cone = None
-    if cfg.ray_cones:
-        cwidth, cspread = carry[k], carry[k + 1]
-        cone = (cwidth, cspread)
-        k += 2
-    prev_pdf = carry[k] if nee_on else None
-    num_lights = lights.count
-    takes_cone = cone is not None and _supports_kw(closest_hit, "cone")
-    inf = torch.full_like(alive, float("inf"), dtype=torch.float32)
-    rec = closest_hit(origins, dirs, cfg.t_min,
-                      torch.where(alive, inf, torch.zeros_like(inf)),
-                      **({"cone": cone} if takes_cone else {}))
-    active = alive & rec.hit
+    with span("srt.shade"):
+        nee_on = emitters is not None and cfg.nee
+        origins, dirs, throughput, color, alive, pix = carry[:6]
+        k = 6
+        cone = None
+        if cfg.ray_cones:
+            cwidth, cspread = carry[k], carry[k + 1]
+            cone = (cwidth, cspread)
+            k += 2
+        prev_pdf = carry[k] if nee_on else None
+        num_lights = lights.count
+        takes_cone = cone is not None and _supports_kw(closest_hit, "cone")
+        inf = torch.full_like(alive, float("inf"), dtype=torch.float32)
+        rec = closest_hit(origins, dirs, cfg.t_min,
+                          torch.where(alive, inf, torch.zeros_like(inf)),
+                          **({"cone": cone} if takes_cone else {}))
+        active = alive & rec.hit
 
-    # Emission: with NEE the hit-side credit carries the balance-heuristic
-    # weight prev_pdf / (prev_pdf + pdf_nee(hit)); primaries and
-    # delta-specular bounces arrive with the sentinel (weight 1.0), and
-    # non-emitters have tri_pdfa = 0 (weight 1 exactly).
-    if rec.emitted is not None:
-        credit = throughput * rec.emitted
-        if nee_on and rec.tri is not None:
-            pdfa_hit = emitters.tri_pdfa[torch.clamp_min(rec.tri, 0).long()]
-            cos_hit = absolute((rec.normal * dirs).sum(0))
-            # t guarded so no inf * 0 reaches an unselected where branch
-            # (it would poison the backward).
-            t_h = torch.where(active, rec.t, torch.ones_like(rec.t))
-            pdf_nee_hit = pdfa_hit * t_h * t_h / maximum(cos_hit, 1e-6)
-            credit = credit * bc(prev_pdf / (prev_pdf + pdf_nee_hit))
-        color = color + _masked(bc(active), credit)
+        # Emission: with NEE the hit-side credit carries the balance-heuristic
+        # weight prev_pdf / (prev_pdf + pdf_nee(hit)); primaries and
+        # delta-specular bounces arrive with the sentinel (weight 1.0), and
+        # non-emitters have tri_pdfa = 0 (weight 1 exactly).
+        if rec.emitted is not None:
+            credit = throughput * rec.emitted
+            if nee_on and rec.tri is not None:
+                pdfa_hit = emitters.tri_pdfa[
+                    torch.clamp_min(rec.tri, 0).long()]
+                cos_hit = absolute((rec.normal * dirs).sum(0))
+                # t guarded so no inf * 0 reaches an unselected where branch
+                # (it would poison the backward).
+                t_h = torch.where(active, rec.t, torch.ones_like(rec.t))
+                pdf_nee_hit = pdfa_hit * t_h * t_h / maximum(cos_hit, 1e-6)
+                credit = credit * bc(prev_pdf / (prev_pdf + pdf_nee_hit))
+            color = color + _masked(bc(active), credit)
 
-    missed = alive & ~rec.hit
-    color = color + _masked(bc(missed), throughput * _sky(dirs, cfg))
+        missed = alive & ~rec.hit
+        color = color + _masked(bc(missed), throughput * _sky(dirs, cfg))
 
-    view = vec.normalize(-dirs)
+        view = vec.normalize(-dirs)
 
-    # --- RIS light sampling + direct lighting (glsl:228-246) ---
-    u_idx = u[0:num_lights]
-    u_sel = u[num_lights:2 * num_lights]
-    sampled, light_idx, light_w = brdf.sample_lights_ris(
-        rec.p, lights, u_idx, u_sel)
-    l_pos = take_small_t(lights.position, light_idx)
-    l_col = take_small_t(lights.color, light_idx)
-    l_int = take_small_t(lights.intensity[:, None], light_idx)[0]
+        # --- RIS light sampling + direct lighting (glsl:228-246) ---
+        u_idx = u[0:num_lights]
+        u_sel = u[num_lights:2 * num_lights]
+        sampled, light_idx, light_w = brdf.sample_lights_ris(
+            rec.p, lights, u_idx, u_sel)
+        l_pos = take_small_t(lights.position, light_idx)
+        l_col = take_small_t(lights.color, light_idx)
+        l_int = take_small_t(lights.intensity[:, None], light_idx)[0]
 
-    if shadow_fn is None:
-        # Shadow queries whose answer multiplies an exact zero (failed RIS
-        # draw, light behind the shading normal) trace with t_max = 0.
-        ndl_pos = (rec.normal * brdf.light_dir_to(rec.p, l_pos)).sum(0) > 0.0
-        shadow_active = active & sampled & ndl_pos
-        if (cfg.sort_shadows_from is not None
-                and bounce >= cfg.sort_shadows_from):
-            occ = _occluded_sorted(closest_hit, rec.p, l_pos, light_idx,
-                                   cfg.t_min, shadow_active)
+        if shadow_fn is None:
+            # Shadow queries whose answer multiplies an exact zero (failed RIS
+            # draw, light behind the shading normal) trace with t_max = 0.
+            ndl_pos = (rec.normal
+                       * brdf.light_dir_to(rec.p, l_pos)).sum(0) > 0.0
+            shadow_active = active & sampled & ndl_pos
+            if (cfg.sort_shadows_from is not None
+                    and bounce >= cfg.sort_shadows_from):
+                occ = _occluded_sorted(closest_hit, rec.p, l_pos, light_idx,
+                                       cfg.t_min, shadow_active)
+            else:
+                occ = _occluded(closest_hit, rec.p, l_pos, cfg.t_min,
+                                shadow_active)
+            shadow_mult = torch.where(occ, 0.0, 1.0).to(torch.float32)
         else:
-            occ = _occluded(closest_hit, rec.p, l_pos, cfg.t_min,
-                            shadow_active)
-        shadow_mult = torch.where(occ, 0.0, 1.0).to(torch.float32)
-    else:
-        shadow_mult = shadow_fn(closest_hit, rec.p, l_pos, cfg.t_min, active)
+            shadow_mult = shadow_fn(closest_hit, rec.p, l_pos, cfg.t_min,
+                                    active)
 
-    direct_spec = brdf.sample_direct(
-        rec.p, rec.normal, view, rec.mat, l_pos, l_col, l_int, shadow_mult
-    ) * bc(light_w)
-    if cfg.uniform_use_spec:
-        direct = direct_spec
-    else:
-        l_dir = brdf.light_dir_to(rec.p, l_pos)
-        falloff = brdf.light_falloff(rec.p, l_pos)
-        light_term = l_col * bc(falloff * l_int * light_w)
-        direct_diff = (brdf.sample_direct_new(rec.normal, l_dir, view, rec.mat)
-                       * bc(shadow_mult) * light_term)
-        direct = torch.where(bc(rec.mat.use_spec), direct_spec, direct_diff)
-    color = color + _masked(bc(active & sampled), throughput * direct)
+        direct_spec = brdf.sample_direct(
+            rec.p, rec.normal, view, rec.mat, l_pos, l_col, l_int, shadow_mult
+        ) * bc(light_w)
+        if cfg.uniform_use_spec:
+            direct = direct_spec
+        else:
+            l_dir = brdf.light_dir_to(rec.p, l_pos)
+            falloff = brdf.light_falloff(rec.p, l_pos)
+            light_term = l_col * bc(falloff * l_int * light_w)
+            direct_diff = (brdf.sample_direct_new(rec.normal, l_dir, view,
+                                                  rec.mat)
+                           * bc(shadow_mult) * light_term)
+            direct = torch.where(bc(rec.mat.use_spec), direct_spec,
+                                 direct_diff)
+        color = color + _masked(bc(active & sampled), throughput * direct)
 
-    # --- NEE toward emissive triangles (no reference analog) ---
-    u4 = u[2 * num_lights + 2:2 * num_lights + 6]
-    if nee_on:
-        u_nee = u[2 * num_lights + 6:2 * num_lights + 9]
-        x_l, n_l, le_s, pdf_a = emitters_mod.sample_emitters(
-            emitters, u_nee[0], u_nee[1], u_nee[2])
-        delta_l = x_l - rec.p
-        d2 = maximum(vec.norm2(delta_l), 1e-12)
-        dist = torch.sqrt(d2)
-        wi = delta_l / bc(dist)
-        cos_l = absolute((n_l * wi).sum(0))              # two-sided Ke
-        front = (rec.normal * wi).sum(0) > 0.0
-        pdf_nee = pdf_a * d2 / maximum(cos_l, 1e-6)
-        # The same GGX half-vector draw as sample_indirect below, so the
-        # diffuse lobe's Fresnel matches the BSDF-side estimator.
-        h_rand = brdf.sample_ggx_half_vector(
-            rec.normal, rec.mat.roughness, u4[2], u4[3])
-        fcos, pdf_mix_l = brdf.eval_lobes_pdf(
-            rec.normal, view, wi, rec.mat, h_diffuse=h_rand)
-        nee_active = active & front & (cos_l > 1e-6)
-        # The segment is shrunk off the emitter so the sampled triangle
-        # does not occlude its own sample (the JAX package's 0.999, a
-        # reference fault the port keeps: ROADMAP.md queue C).
-        occ_nee = _occluded(closest_hit, rec.p, rec.p + delta_l * 0.999,
-                            cfg.t_min, nee_active)
-        vis = nee_active & ~occ_nee
-        # Balance heuristic folded: w_nee / pdf_nee = 1 / (pdf_nee + pdf_mix).
-        contrib = le_s * fcos * bc(1.0 / maximum(pdf_nee + pdf_mix_l, 1e-12))
-        color = color + _masked(bc(vis), throughput * contrib)
+        # --- NEE toward emissive triangles (no reference analog) ---
+        u4 = u[2 * num_lights + 2:2 * num_lights + 6]
+        if nee_on:
+            u_nee = u[2 * num_lights + 6:2 * num_lights + 9]
+            x_l, n_l, le_s, pdf_a = emitters_mod.sample_emitters(
+                emitters, u_nee[0], u_nee[1], u_nee[2])
+            delta_l = x_l - rec.p
+            d2 = maximum(vec.norm2(delta_l), 1e-12)
+            dist = torch.sqrt(d2)
+            wi = delta_l / bc(dist)
+            cos_l = absolute((n_l * wi).sum(0))              # two-sided Ke
+            front = (rec.normal * wi).sum(0) > 0.0
+            pdf_nee = pdf_a * d2 / maximum(cos_l, 1e-6)
+            # The same GGX half-vector draw as sample_indirect below, so the
+            # diffuse lobe's Fresnel matches the BSDF-side estimator.
+            h_rand = brdf.sample_ggx_half_vector(
+                rec.normal, rec.mat.roughness, u4[2], u4[3])
+            fcos, pdf_mix_l = brdf.eval_lobes_pdf(
+                rec.normal, view, wi, rec.mat, h_diffuse=h_rand)
+            nee_active = active & front & (cos_l > 1e-6)
+            # The segment is shrunk off the emitter so the sampled triangle
+            # does not occlude its own sample (the JAX package's 0.999, a
+            # reference fault the port keeps: ROADMAP.md queue C).
+            occ_nee = _occluded(closest_hit, rec.p, rec.p + delta_l * 0.999,
+                                cfg.t_min, nee_active)
+            vis = nee_active & ~occ_nee
+            # Balance heuristic folded:
+            # w_nee / pdf_nee = 1 / (pdf_nee + pdf_mix).
+            contrib = le_s * fcos * bc(
+                1.0 / maximum(pdf_nee + pdf_mix_l, 1e-12))
+            color = color + _masked(bc(vis), throughput * contrib)
 
-    # --- BRDF lobe selection (glsl:248-264) ---
-    u_lobe = u[2 * num_lights]
-    forced_spec = (rec.mat.metalness == 1.0) & (rec.mat.roughness == 0.0)
-    prob = brdf.brdf_probability(rec.mat, view, rec.normal)
-    chose_spec = u_lobe < prob
-    take_spec = forced_spec | chose_spec
-    lobe_scale = torch.where(
-        forced_spec, torch.ones_like(prob),
-        torch.where(chose_spec, 1.0 / prob, 1.0 / (1.0 - prob)))
-    throughput = torch.where(bc(active), throughput * bc(lobe_scale),
-                             throughput)
-
-    # --- Russian roulette (glsl:266-274) once past max_depth ---
-    u_rr = u[2 * num_lights + 1]
-    in_rr = bounce >= cfg.max_depth
-    survival = clip(brdf.luminance(throughput), 0.1, 1.0)
-    died = active & (u_rr > survival) if in_rr else torch.zeros_like(active)
-    if cfg.sky_always:
-        color = color + _masked(bc(died), throughput * _sky(dirs, cfg))
-    survived = active & ~died
-    if in_rr:
-        throughput = torch.where(bc(survived), throughput / bc(survival),
+        # --- BRDF lobe selection (glsl:248-264) ---
+        u_lobe = u[2 * num_lights]
+        forced_spec = (rec.mat.metalness == 1.0) & (rec.mat.roughness == 0.0)
+        prob = brdf.brdf_probability(rec.mat, view, rec.normal)
+        chose_spec = u_lobe < prob
+        take_spec = forced_spec | chose_spec
+        lobe_scale = torch.where(
+            forced_spec, torch.ones_like(prob),
+            torch.where(chose_spec, 1.0 / prob, 1.0 / (1.0 - prob)))
+        throughput = torch.where(bc(active), throughput * bc(lobe_scale),
                                  throughput)
-    active = survived
 
-    # --- Indirect bounce (glsl:276-285) ---
-    new_dir, weight, valid = brdf.sample_indirect(
-        rec.p, rec.normal, view, rec.mat, take_spec,
-        u4[0], u4[1], u4[2], u4[3])
-    invalid = active & ~valid
-    if cfg.sky_always:
-        color = color + _masked(bc(invalid), throughput * _sky(dirs, cfg))
-    cont = active & valid
-    throughput = torch.where(bc(cont), throughput * weight, throughput)
-    origins = torch.where(bc(cont), rec.p, origins)
-    dirs = torch.where(bc(cont), new_dir, dirs)
-    extra = ()
-    if cone is not None:
-        # Ray-cone update: the footprint grows along the segment, and the
-        # spread widens by the sampled lobe (specular by roughness,
-        # diffuse by a constant).
-        t_seg = torch.where(rec.hit, rec.t, torch.zeros_like(rec.t))
-        cwidth = torch.where(cont, cwidth + t_seg * cspread, cwidth)
-        dspread = torch.where(
-            take_spec, cfg.cone_spec_spread * rec.mat.roughness,
-            torch.full_like(cspread, cfg.cone_diffuse_spread))
-        cspread = torch.where(cont, cspread + dspread, cspread)
-        extra = (cwidth, cspread)
-    if nee_on:
-        # The mixture pdf of the direction just sampled: the next bounce's
-        # hit-side MIS weight.  Delta-specular choices carry the sentinel.
-        _, pdf_next = brdf.eval_lobes_pdf(rec.normal, view, new_dir,
-                                          rec.mat, h_diffuse=h_rand)
-        delta_choice = take_spec & (rec.mat.roughness == 0.0)
-        prev_pdf = torch.where(cont & ~delta_choice, pdf_next,
-                               torch.full_like(pdf_next, _NO_MIS_PDF))
-        extra = extra + (prev_pdf,)
+        # --- Russian roulette (glsl:266-274) once past max_depth ---
+        u_rr = u[2 * num_lights + 1]
+        in_rr = bounce >= cfg.max_depth
+        survival = clip(brdf.luminance(throughput), 0.1, 1.0)
+        died = (active & (u_rr > survival) if in_rr
+                else torch.zeros_like(active))
+        if cfg.sky_always:
+            color = color + _masked(bc(died), throughput * _sky(dirs, cfg))
+        survived = active & ~died
+        if in_rr:
+            throughput = torch.where(bc(survived), throughput / bc(survival),
+                                     throughput)
+        active = survived
 
-    # Accounting: rays entering the bounce + shadow queries issued for
-    # active hits (a query resolved analytically above still counts),
-    # NEE's segments included.
-    shadow_queries = active.sum()
-    if nee_on:
-        shadow_queries = shadow_queries + nee_active.sum()
-    stats = torch.stack([alive.sum(), shadow_queries]).to(torch.int32)
-    out = (origins, dirs, throughput, color, cont, pix) + extra
-    if return_aux:
+        # --- Indirect bounce (glsl:276-285) ---
+        new_dir, weight, valid = brdf.sample_indirect(
+            rec.p, rec.normal, view, rec.mat, take_spec,
+            u4[0], u4[1], u4[2], u4[3])
+        invalid = active & ~valid
+        if cfg.sky_always:
+            color = color + _masked(bc(invalid), throughput * _sky(dirs, cfg))
+        cont = active & valid
+        throughput = torch.where(bc(cont), throughput * weight, throughput)
+        origins = torch.where(bc(cont), rec.p, origins)
+        dirs = torch.where(bc(cont), new_dir, dirs)
+        extra = ()
+        if cone is not None:
+            # Ray-cone update: the footprint grows along the segment, and the
+            # spread widens by the sampled lobe (specular by roughness,
+            # diffuse by a constant).
+            t_seg = torch.where(rec.hit, rec.t, torch.zeros_like(rec.t))
+            cwidth = torch.where(cont, cwidth + t_seg * cspread, cwidth)
+            dspread = torch.where(
+                take_spec, cfg.cone_spec_spread * rec.mat.roughness,
+                torch.full_like(cspread, cfg.cone_diffuse_spread))
+            cspread = torch.where(cont, cspread + dspread, cspread)
+            extra = (cwidth, cspread)
+        if nee_on:
+            # The mixture pdf of the direction just sampled: the next bounce's
+            # hit-side MIS weight.  Delta-specular choices carry the sentinel.
+            _, pdf_next = brdf.eval_lobes_pdf(rec.normal, view, new_dir,
+                                              rec.mat, h_diffuse=h_rand)
+            delta_choice = take_spec & (rec.mat.roughness == 0.0)
+            prev_pdf = torch.where(cont & ~delta_choice, pdf_next,
+                                   torch.full_like(pdf_next, _NO_MIS_PDF))
+            extra = extra + (prev_pdf,)
+
+        # Accounting: rays entering the bounce + shadow queries issued for
+        # active hits (a query resolved analytically above still counts),
+        # NEE's segments included.
+        shadow_queries = active.sum()
+        if nee_on:
+            shadow_queries = shadow_queries + nee_active.sum()
+        stats = torch.stack([alive.sum(), shadow_queries]).to(torch.int32)
+        out = (origins, dirs, throughput, color, cont, pix) + extra
+        if return_aux:
+            if sort:
+                raise ValueError("return_aux reports pre-sort order; use "
+                                 "sort=False")
+            return out, stats, {"take_spec": take_spec,
+                                "rough": rec.mat.roughness, "hit": rec.hit,
+                                "t": rec.t}
         if sort:
-            raise ValueError("return_aux reports pre-sort order; use "
-                             "sort=False")
-        return out, stats, {"take_spec": take_spec,
-                            "rough": rec.mat.roughness, "hit": rec.hit,
-                            "t": rec.t}
-    if sort:
-        order = torch.argsort(_bounce_sort_keys(origins, dirs, cont, bounce),
-                              stable=True)
-        out = tuple(x[..., order] for x in out)
-    return out, stats
+            order = torch.argsort(
+                _bounce_sort_keys(origins, dirs, cont, bounce), stable=True)
+            out = tuple(x[..., order] for x in out)
+        return out, stats
 
 
 def initial_carry(origins, dirs, cfg: RenderConfig, nee_on: bool,

@@ -16,6 +16,7 @@ depth), not of the random numbers.
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -27,10 +28,17 @@ from srt_tpu_torch.models import pathtracer
 from srt_tpu_torch.ops.rng import KeyStream, bounce_slots
 from srt_tpu_torch.ops.vec import bc
 from srt_tpu_torch.scene import Lights
+from srt_tpu_torch.utils.profiling import span
 
 # Width granule of discovered schedules (kept from the JAX package so the
 # two packages discover the same schedules).
 GRANULE = 4096
+
+
+@functools.lru_cache(maxsize=None)
+def _bounce_span(b: int) -> str:
+    """The span name of bounce ``b`` (from 1), built once."""
+    return f"srt.bounce.{b}"
 
 
 def trace_compact(closest_hit, lights: Lights, origins, dirs, stream,
@@ -75,19 +83,22 @@ def trace_compact(closest_hit, lights: Lights, origins, dirs, stream,
     pix_chunks, color_chunks, stats = [], [], []
     overflow = torch.zeros((), dtype=torch.int32, device=dev)
     for b in range(n_bounces):
-        width = schedule[b]
-        if width < carry[0].shape[1]:
-            pix_chunks.append(carry[5][width:])
-            color_chunks.append(carry[3][:, width:])
-            carry = tuple(x[:, :width] if x.ndim == 2 else x[:width]
-                          for x in carry)
-        u = u_blk.rows_at(b * d_slots, (b + 1) * d_slots, carry[5])
-        carry, st = pathtracer.bounce_step(hit_fns[b], lights, cfg, carry, b,
-                                           u, sort=True, emitters=emitters)
-        stats.append(st)
-        if b + 1 < n_bounces:
-            n_alive = carry[4].sum(dtype=torch.int32)
-            overflow = overflow + torch.clamp_min(n_alive - schedule[b + 1], 0)
+        with span(_bounce_span(b + 1)):
+            width = schedule[b]
+            if width < carry[0].shape[1]:
+                pix_chunks.append(carry[5][width:])
+                color_chunks.append(carry[3][:, width:])
+                carry = tuple(x[:, :width] if x.ndim == 2 else x[:width]
+                              for x in carry)
+            u = u_blk.rows_at(b * d_slots, (b + 1) * d_slots, carry[5])
+            carry, st = pathtracer.bounce_step(hit_fns[b], lights, cfg,
+                                               carry, b, u, sort=True,
+                                               emitters=emitters)
+            stats.append(st)
+            if b + 1 < n_bounces:
+                n_alive = carry[4].sum(dtype=torch.int32)
+                overflow = overflow + torch.clamp_min(
+                    n_alive - schedule[b + 1], 0)
 
     # Paths alive after the last bounce are truncated as a miss.
     origins, dirs, throughput, color, alive, pix = carry[:6]
@@ -119,20 +130,22 @@ def trace_image_compact(closest_hit, lights: Lights, cam: CameraConfig,
     cfg = pathtracer.with_primary_spread(cfg, cam)
     k = cfg.spp
     n_pix = cam.width * cam.height
-    jitter = stream.take(2)                                   # [2, K*N]
-    defocus = stream.take(2) if cam.defocus_angle > 0 else None
-    vp = derive_viewport(cam, origin=origin, look_at=look_at,
-                         device=jitter.device)
-    origins, dirs = generate_rays(vp, cam.width, cam.height, jitter, defocus)
-    pix_init = None
-    if cfg.morton_order:
-        from srt_tpu_torch.ops.morton import morton_perm, permute_rays
-        perm, _ = morton_perm(cam.height, cam.width)
-        if k > 1:
-            perm = (perm[:, None] * k
-                    + np.arange(k, dtype=perm.dtype)[None, :]).reshape(-1)
-        origins, dirs = permute_rays(origins, dirs, perm)
-        pix_init = perm
+    with span("srt.raygen"):
+        jitter = stream.take(2)                               # [2, K*N]
+        defocus = stream.take(2) if cam.defocus_angle > 0 else None
+        vp = derive_viewport(cam, origin=origin, look_at=look_at,
+                             device=jitter.device)
+        origins, dirs = generate_rays(vp, cam.width, cam.height, jitter,
+                                      defocus)
+        pix_init = None
+        if cfg.morton_order:
+            from srt_tpu_torch.ops.morton import morton_perm, permute_rays
+            perm, _ = morton_perm(cam.height, cam.width)
+            if k > 1:
+                perm = (perm[:, None] * k
+                        + np.arange(k, dtype=perm.dtype)[None, :]).reshape(-1)
+            origins, dirs = permute_rays(origins, dirs, perm)
+            pix_init = perm
     out = trace_compact(closest_hit, lights, origins, dirs, stream, cfg,
                         schedule, pix_init=pix_init,
                         return_stats=return_stats, emitters=emitters)

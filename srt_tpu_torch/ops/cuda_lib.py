@@ -38,6 +38,8 @@ from pathlib import Path
 
 import torch
 
+from srt_tpu_torch.utils.profiling import span
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "srt_tpu_torch"
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -144,25 +146,26 @@ def _build(sources, so: Path) -> str:
 @functools.lru_cache(maxsize=None)
 def load() -> Library:
     """Build (if needed) and load the kernel library; raises on failure."""
-    sources = sorted(CSRC.glob("*.cu"))
-    digest = _digest(sorted(CSRC.glob("*.cu*")))
-    so = BUILD_DIR / f"libsrt_tpu_torch_{digest}.so"
-    seconds, log = 0.0, ""
-    if not so.exists():
-        t0 = time.perf_counter()
-        log = _build(sources, so)
-        seconds = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(so))
-    functions = {}
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        functions[name[4:]] = fn
-    lib.srt_error_string.argtypes = [ctypes.c_int]
-    lib.srt_error_string.restype = ctypes.c_char_p
-    return Library(lib=lib, path=so, build_seconds=seconds, log=log,
-                   functions=functions)
+    with span("srt.setup.kernels"):
+        sources = sorted(CSRC.glob("*.cu"))
+        digest = _digest(sorted(CSRC.glob("*.cu*")))
+        so = BUILD_DIR / f"libsrt_tpu_torch_{digest}.so"
+        seconds, log = 0.0, ""
+        if not so.exists():
+            t0 = time.perf_counter()
+            log = _build(sources, so)
+            seconds = time.perf_counter() - t0
+        lib = ctypes.CDLL(str(so))
+        functions = {}
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            functions[name[4:]] = fn
+        lib.srt_error_string.argtypes = [ctypes.c_int]
+        lib.srt_error_string.restype = ctypes.c_char_p
+        return Library(lib=lib, path=so, build_seconds=seconds, log=log,
+                       functions=functions)
 
 
 def error_string(code: int) -> str:

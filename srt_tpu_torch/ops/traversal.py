@@ -87,6 +87,7 @@ from srt_tpu_torch.ops.cuda_lib import launch as _launch
 from srt_tpu_torch.ops.cuda_lib import (  # noqa: F401  (re-exported)
     launch_counts, reset_launch_counts)
 from srt_tpu_torch.ops.intersect import MT_HIT_EPS, MT_PARALLEL_EPS, mt_refine
+from srt_tpu_torch.utils.profiling import span
 
 CLUSTER = 128          # triangles per cluster
 SUPER = 16             # clusters per supercluster (one 16-bit word)
@@ -1163,83 +1164,84 @@ def model_hit(scene, b: int, origins, dirs, t_best, tile: int = DEFAULT_TILE,
     zero u/v.  ``plain=True`` runs the plain versions on CUDA tensors (for
     kernel-vs-plain comparisons only).
     """
-    if scene.woop is None:
-        raise ValueError("scene was uploaded without walk tables; use "
-                         "flatten_models(..., pad_to=128) + upload()")
-    if count_evals and binned:
-        raise ValueError("count_evals instrumentation covers the tiled walk "
-                         "only")
-    pairs = binned is True or binned == "binned"
-    mask_scan = binned == "pg"
-    group = 0
-    if isinstance(binned, str) and not (pairs or mask_scan):
-        if not binned.startswith("pg2:"):
-            raise ValueError(f"unknown walk {binned!r}")
-        group = int(binned.split(":")[1])
+    with span("srt.walk"):
+        if scene.woop is None:
+            raise ValueError("scene was uploaded without walk tables; use "
+                             "flatten_models(..., pad_to=128) + upload()")
+        if count_evals and binned:
+            raise ValueError("count_evals instrumentation covers the tiled "
+                             "walk only")
+        pairs = binned is True or binned == "binned"
+        mask_scan = binned == "pg"
+        group = 0
+        if isinstance(binned, str) and not (pairs or mask_scan):
+            if not binned.startswith("pg2:"):
+                raise ValueError(f"unknown walk {binned!r}")
+            group = int(binned.split(":")[1])
 
-    lo = scene.model_first_tri[b]
-    woop, cb, sbounds, cb8, s_count, n_clusters = model_tables(scene, b)
-    if stream is None:
-        stream = n_clusters > STREAM_THRESHOLD_CLUSTERS
-    if stream:
-        woop = stream_table(scene, b)
-    pairs = pairs and s_count > 1 and not stream
-    mask_scan = mask_scan and s_count > 1 and not stream
-    # The pair capacity, and so the pair walk's branch, follows the padded
-    # ray count: pad as the JAX package does, to whole 8-tile windows.
-    rays8, o_m, d_m = pack_rays(scene, b, origins, dirs, t_best,
-                                tile * 8 if pairs else tile,
-                                t_min if any_hit else 0.0)
-    n = origins.shape[1]
-    npad = rays8.shape[0]
-    dev = origins.device
+        lo = scene.model_first_tri[b]
+        woop, cb, sbounds, cb8, s_count, n_clusters = model_tables(scene, b)
+        if stream is None:
+            stream = n_clusters > STREAM_THRESHOLD_CLUSTERS
+        if stream:
+            woop = stream_table(scene, b)
+        pairs = pairs and s_count > 1 and not stream
+        mask_scan = mask_scan and s_count > 1 and not stream
+        # The pair capacity, and so the pair walk's branch, follows the padded
+        # ray count: pad as the JAX package does, to whole 8-tile windows.
+        rays8, o_m, d_m = pack_rays(scene, b, origins, dirs, t_best,
+                                    tile * 8 if pairs else tile,
+                                    t_min if any_hit else 0.0)
+        n = origins.shape[1]
+        npad = rays8.shape[0]
+        dev = origins.device
 
-    if group and s_count > 1:
-        clist, bits, counts = cull_pg2(rays8, cb8, s_count, group, sbounds,
-                                       plain)
-        walk = pgwalk2_stream if stream else pgwalk2
-        out_t, out_i = walk(clist, bits, counts, rays8, woop, group, any_hit,
-                            plain)
-    elif mask_scan:
-        mask = cull_gmask(rays8, cb8, s_count, sbounds, plain)
-        out_t, out_i = pgwalk(mask, rays8, woop, any_hit, plain)
-    elif pairs:
-        out_t, out_i = _pair_walk(rays8, sbounds, cb, woop, tile, any_hit,
-                                  pair_factor, plain)
-    else:
-        if s_count == 1:
-            # One super: the list is trivial; the cluster gate culls.
-            alive = rays8[:, 6].view(-1, tile).amax(1) > 0.0
-            counts = alive.to(torch.int32)[:, None]
-            clist = torch.zeros((npad // tile, 1), dtype=torch.int32,
-                                device=dev)
-            elist = torch.zeros((npad // tile, 1), dtype=torch.float32,
-                                device=dev)
-        else:
-            clist, elist, counts = cull(rays8, sbounds, tile, plain)
-        if count_evals:
-            out_t, out_i, ctr = intersect_count(
-                counts, clist, elist, rays8, cb, woop, tile, any_hit, stream,
-                plain)
-        else:
-            walk = intersect_stream if stream else intersect
-            out_t, out_i = walk(counts, clist, elist, rays8, cb, woop, tile,
+        if group and s_count > 1:
+            clist, bits, counts = cull_pg2(rays8, cb8, s_count, group, sbounds,
+                                           plain)
+            walk = pgwalk2_stream if stream else pgwalk2
+            out_t, out_i = walk(clist, bits, counts, rays8, woop, group,
                                 any_hit, plain)
-    out_t = out_t[:n, 0]
-    out_i = out_i[:n, 0]
+        elif mask_scan:
+            mask = cull_gmask(rays8, cb8, s_count, sbounds, plain)
+            out_t, out_i = pgwalk(mask, rays8, woop, any_hit, plain)
+        elif pairs:
+            out_t, out_i = _pair_walk(rays8, sbounds, cb, woop, tile, any_hit,
+                                      pair_factor, plain)
+        else:
+            if s_count == 1:
+                # One super: the list is trivial; the cluster gate culls.
+                alive = rays8[:, 6].view(-1, tile).amax(1) > 0.0
+                counts = alive.to(torch.int32)[:, None]
+                clist = torch.zeros((npad // tile, 1), dtype=torch.int32,
+                                    device=dev)
+                elist = torch.zeros((npad // tile, 1), dtype=torch.float32,
+                                    device=dev)
+            else:
+                clist, elist, counts = cull(rays8, sbounds, tile, plain)
+            if count_evals:
+                out_t, out_i, ctr = intersect_count(
+                    counts, clist, elist, rays8, cb, woop, tile, any_hit,
+                    stream, plain)
+            else:
+                walk = intersect_stream if stream else intersect
+                out_t, out_i = walk(counts, clist, elist, rays8, cb, woop,
+                                    tile, any_hit, plain)
+        out_t = out_t[:n, 0]
+        out_i = out_i[:n, 0]
 
-    hit = out_i >= 0
-    idx = torch.where(hit, out_i + lo, torch.full_like(out_i, -1))
-    inf = torch.full_like(out_t, float("inf"))
-    if any_hit or not refine:
-        zeros = torch.zeros_like(out_t)
-        out = (torch.where(hit, out_t, inf), idx, zeros, zeros)
-    else:
-        w = torch.clamp_min(idx, 0).long()
-        v0 = scene.tri_v0[w].T
-        t, u, v = mt_refine(o_m, d_m, v0, scene.tri_v1[w].T - v0,
-                            scene.tri_v2[w].T - v0)
-        zeros = torch.zeros_like(t)
-        out = (torch.where(hit, t, inf), idx, torch.where(hit, u, zeros),
-               torch.where(hit, v, zeros))
-    return out + (ctr,) if count_evals else out
+        hit = out_i >= 0
+        idx = torch.where(hit, out_i + lo, torch.full_like(out_i, -1))
+        inf = torch.full_like(out_t, float("inf"))
+        if any_hit or not refine:
+            zeros = torch.zeros_like(out_t)
+            out = (torch.where(hit, out_t, inf), idx, zeros, zeros)
+        else:
+            w = torch.clamp_min(idx, 0).long()
+            v0 = scene.tri_v0[w].T
+            t, u, v = mt_refine(o_m, d_m, v0, scene.tri_v1[w].T - v0,
+                                scene.tri_v2[w].T - v0)
+            zeros = torch.zeros_like(t)
+            out = (torch.where(hit, t, inf), idx, torch.where(hit, u, zeros),
+                   torch.where(hit, v, zeros))
+        return out + (ctr,) if count_evals else out

@@ -23,6 +23,7 @@ from typing import Any, Callable, List, Optional, Tuple
 import torch
 
 from srt_tpu_torch.ops import rng
+from srt_tpu_torch.utils.profiling import span
 
 
 def _leaves_with_paths(tree, path: str = ""):
@@ -108,16 +109,19 @@ def make_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,
     parameters in their physical domain (for example roughness > 0)."""
 
     def step(float_leaves, target, key):
-        optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(merge(float_leaves), target, key)
-        loss.backward()
-        optimizer.step()
-        if project_fn is not None:
-            with torch.no_grad():
-                projected, _ = float_partition(
-                    project_fn(merge(float_leaves)), trainable)
-                for leaf, new in zip(float_leaves, projected):
-                    leaf.copy_(new)
+        with span("srt.forward"):
+            optimizer.zero_grad(set_to_none=True)
+            loss = loss_fn(merge(float_leaves), target, key)
+        with span("srt.backward"):
+            loss.backward()
+        with span("srt.update"):
+            optimizer.step()
+            if project_fn is not None:
+                with torch.no_grad():
+                    projected, _ = float_partition(
+                        project_fn(merge(float_leaves)), trainable)
+                    for leaf, new in zip(float_leaves, projected):
+                        leaf.copy_(new)
         return float_leaves, loss.detach()
 
     return step

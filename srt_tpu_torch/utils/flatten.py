@@ -18,6 +18,7 @@ import numpy as np
 
 from srt_tpu_torch.utils.bvh import FlatBVH, bvh_depth, triangle_bvh
 from srt_tpu_torch.utils.obj_loader import MeshData
+from srt_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -105,127 +106,130 @@ def flatten_models(
 ) -> FlatScene:
     """Flatten models into one FlatScene (``frames`` are world->model
     matrices, identity by default)."""
-    if bvhs is None:
-        bvhs = [triangle_bvh(m.positions, m.tri_vidx, leaf_size=leaf_size)
-                for m in meshes]
-    if frames is None:
-        frames = [np.eye(4, dtype=np.float32) for _ in meshes]
+    with span("srt.setup.flatten"):
+        if bvhs is None:
+            bvhs = [triangle_bvh(m.positions, m.tri_vidx, leaf_size=leaf_size)
+                    for m in meshes]
+        if frames is None:
+            frames = [np.eye(4, dtype=np.float32) for _ in meshes]
 
-    first_nodes, node_counts, first_tris, tri_counts, frame_list = [], [], [], [], []
-    nmin, nmax, nfirst, ncount = [], [], [], []
-    tv0, tv1, tv2, u0, u1, u2, tmat, tvidx = [], [], [], [], [], [], [], []
-    tn0, tn1, tn2, tadj = [], [], [], []
-    positions = []
-    md, ms, mem, mex, mut, mti = [], [], [], [], [], []
+        first_nodes, node_counts, first_tris, tri_counts = [], [], [], []
+        frame_list = []
+        nmin, nmax, nfirst, ncount = [], [], [], []
+        tv0, tv1, tv2, u0, u1, u2, tmat, tvidx = [], [], [], [], [], [], [], []
+        tn0, tn1, tn2, tadj = [], [], [], []
+        positions = []
+        md, ms, mem, mex, mut, mti = [], [], [], [], [], []
 
-    node_off = 0
-    tri_off = 0
-    mat_off = 0
-    vert_off = 0
-    depth = 1
-    for mesh, bvh, frame in zip(meshes, bvhs, frames):
-        depth = max(depth, bvh_depth(bvh))
-        first_nodes.append(node_off)
-        node_counts.append(bvh.num_nodes)
-        first_tris.append(tri_off)
-        tri_counts.append(mesh.num_triangles)
-        frame_list.append(np.asarray(frame, np.float32))
+        node_off = 0
+        tri_off = 0
+        mat_off = 0
+        vert_off = 0
+        depth = 1
+        for mesh, bvh, frame in zip(meshes, bvhs, frames):
+            depth = max(depth, bvh_depth(bvh))
+            first_nodes.append(node_off)
+            node_counts.append(bvh.num_nodes)
+            first_tris.append(tri_off)
+            tri_counts.append(mesh.num_triangles)
+            frame_list.append(np.asarray(frame, np.float32))
 
-        is_leaf = bvh.node_count > 0
-        nfirst.append(
-            np.where(is_leaf, bvh.node_first + tri_off, bvh.node_first + node_off)
-            .astype(np.int32)
+            is_leaf = bvh.node_count > 0
+            nfirst.append(
+                np.where(is_leaf, bvh.node_first + tri_off,
+                         bvh.node_first + node_off)
+                .astype(np.int32)
+            )
+            ncount.append(bvh.node_count.astype(np.int32))
+            nmin.append(bvh.node_min)
+            nmax.append(bvh.node_max)
+
+            order = bvh.prim_order
+            vidx = mesh.tri_vidx[order]
+            n_real = mesh.num_triangles
+            n_padded = -(-n_real // pad_to) * pad_to if pad_to > 1 else n_real
+            n_pad = n_padded - n_real
+
+            def padded(arr, dtype=np.float32):
+                # Copies of the last real triangle: they can tie the closest
+                # hit but never change it, and keep cluster AABBs tight.
+                arr = np.asarray(arr, dtype)
+                if n_pad:
+                    arr = np.concatenate(
+                        [arr, np.repeat(arr[-1:], n_pad, axis=0)], axis=0
+                    )
+                return arr
+
+            tv0.append(padded(mesh.positions[vidx[:, 0]]))
+            tv1.append(padded(mesh.positions[vidx[:, 1]]))
+            tv2.append(padded(mesh.positions[vidx[:, 2]]))
+            u0.append(padded(mesh.uvs[vidx[:, 0]]))
+            u1.append(padded(mesh.uvs[vidx[:, 1]]))
+            u2.append(padded(mesh.uvs[vidx[:, 2]]))
+            nsrc = mesh.normals
+            if nsrc is None:
+                nsrc = np.zeros_like(mesh.positions)
+            tn0.append(padded(nsrc[vidx[:, 0]]))
+            tn1.append(padded(nsrc[vidx[:, 1]]))
+            tn2.append(padded(nsrc[vidx[:, 2]]))
+            tmat.append(padded(mesh.tri_mat[order].astype(np.int64) + mat_off,
+                               np.int32))
+            tvidx.append(padded(vidx.astype(np.int64) + vert_off, np.int32))
+            positions.append(mesh.positions)
+            adj_local = triangle_adjacency(
+                np.concatenate([vidx, np.repeat(vidx[-1:], n_pad, axis=0)])
+                if n_pad else vidx, n_real, positions=mesh.positions)
+            tadj.append(np.where(adj_local >= 0, adj_local + tri_off,
+                                 -1).astype(np.int32))
+
+            for m in mesh.materials:
+                md.append(m.diffuse)
+                ms.append(m.specular)
+                mem.append(m.emissive)
+                mex.append(m.specular_ex)
+                mut.append(bool(m.use_texture))
+                mti.append(-1)
+
+            node_off += bvh.num_nodes
+            tri_off += n_padded
+            mat_off += len(mesh.materials)
+            vert_off += mesh.positions.shape[0]
+
+        def cat(parts, dtype=np.float32):
+            return np.concatenate(parts, axis=0).astype(dtype)
+
+        return FlatScene(
+            model_first_node=np.asarray(first_nodes, np.int32),
+            model_node_count=np.asarray(node_counts, np.int32),
+            model_first_tri=np.asarray(first_tris, np.int32),
+            model_tri_count=np.asarray(tri_counts, np.int32),
+            frames=np.stack(frame_list, axis=0),
+            node_min=np.concatenate(nmin).astype(np.float32),
+            node_max=np.concatenate(nmax).astype(np.float32),
+            node_first=np.concatenate(nfirst),
+            node_count=np.concatenate(ncount),
+            tri_v0=cat(tv0),
+            tri_v1=cat(tv1),
+            tri_v2=cat(tv2),
+            uv0=cat(u0),
+            uv1=cat(u1),
+            uv2=cat(u2),
+            tri_mat=cat(tmat, np.int32),
+            tri_n0=cat(tn0),
+            tri_n1=cat(tn1),
+            tri_n2=cat(tn2),
+            tri_vidx=cat(tvidx, np.int32),
+            positions=np.concatenate(positions).astype(np.float32),
+            tri_adj=cat(tadj, np.int32),
+            mat_diffuse=np.asarray(md, np.float32).reshape(-1, 3),
+            mat_specular=np.asarray(ms, np.float32).reshape(-1, 3),
+            mat_emissive=np.asarray(mem, np.float32).reshape(-1, 3),
+            mat_specular_ex=np.asarray(mex, np.float32).reshape(-1),
+            mat_use_texture=np.asarray(mut, bool).reshape(-1),
+            mat_tex_index=np.asarray(mti, np.int32).reshape(-1),
+            num_triangles=tri_off,
+            max_depth=depth,
         )
-        ncount.append(bvh.node_count.astype(np.int32))
-        nmin.append(bvh.node_min)
-        nmax.append(bvh.node_max)
-
-        order = bvh.prim_order
-        vidx = mesh.tri_vidx[order]
-        n_real = mesh.num_triangles
-        n_padded = -(-n_real // pad_to) * pad_to if pad_to > 1 else n_real
-        n_pad = n_padded - n_real
-
-        def padded(arr, dtype=np.float32):
-            # Copies of the last real triangle: they can tie the closest
-            # hit but never change it, and keep cluster AABBs tight.
-            arr = np.asarray(arr, dtype)
-            if n_pad:
-                arr = np.concatenate(
-                    [arr, np.repeat(arr[-1:], n_pad, axis=0)], axis=0
-                )
-            return arr
-
-        tv0.append(padded(mesh.positions[vidx[:, 0]]))
-        tv1.append(padded(mesh.positions[vidx[:, 1]]))
-        tv2.append(padded(mesh.positions[vidx[:, 2]]))
-        u0.append(padded(mesh.uvs[vidx[:, 0]]))
-        u1.append(padded(mesh.uvs[vidx[:, 1]]))
-        u2.append(padded(mesh.uvs[vidx[:, 2]]))
-        nsrc = mesh.normals
-        if nsrc is None:
-            nsrc = np.zeros_like(mesh.positions)
-        tn0.append(padded(nsrc[vidx[:, 0]]))
-        tn1.append(padded(nsrc[vidx[:, 1]]))
-        tn2.append(padded(nsrc[vidx[:, 2]]))
-        tmat.append(padded(mesh.tri_mat[order].astype(np.int64) + mat_off,
-                           np.int32))
-        tvidx.append(padded(vidx.astype(np.int64) + vert_off, np.int32))
-        positions.append(mesh.positions)
-        adj_local = triangle_adjacency(
-            np.concatenate([vidx, np.repeat(vidx[-1:], n_pad, axis=0)])
-            if n_pad else vidx, n_real, positions=mesh.positions)
-        tadj.append(np.where(adj_local >= 0, adj_local + tri_off,
-                             -1).astype(np.int32))
-
-        for m in mesh.materials:
-            md.append(m.diffuse)
-            ms.append(m.specular)
-            mem.append(m.emissive)
-            mex.append(m.specular_ex)
-            mut.append(bool(m.use_texture))
-            mti.append(-1)
-
-        node_off += bvh.num_nodes
-        tri_off += n_padded
-        mat_off += len(mesh.materials)
-        vert_off += mesh.positions.shape[0]
-
-    def cat(parts, dtype=np.float32):
-        return np.concatenate(parts, axis=0).astype(dtype)
-
-    return FlatScene(
-        model_first_node=np.asarray(first_nodes, np.int32),
-        model_node_count=np.asarray(node_counts, np.int32),
-        model_first_tri=np.asarray(first_tris, np.int32),
-        model_tri_count=np.asarray(tri_counts, np.int32),
-        frames=np.stack(frame_list, axis=0),
-        node_min=np.concatenate(nmin).astype(np.float32),
-        node_max=np.concatenate(nmax).astype(np.float32),
-        node_first=np.concatenate(nfirst),
-        node_count=np.concatenate(ncount),
-        tri_v0=cat(tv0),
-        tri_v1=cat(tv1),
-        tri_v2=cat(tv2),
-        uv0=cat(u0),
-        uv1=cat(u1),
-        uv2=cat(u2),
-        tri_mat=cat(tmat, np.int32),
-        tri_n0=cat(tn0),
-        tri_n1=cat(tn1),
-        tri_n2=cat(tn2),
-        tri_vidx=cat(tvidx, np.int32),
-        positions=np.concatenate(positions).astype(np.float32),
-        tri_adj=cat(tadj, np.int32),
-        mat_diffuse=np.asarray(md, np.float32).reshape(-1, 3),
-        mat_specular=np.asarray(ms, np.float32).reshape(-1, 3),
-        mat_emissive=np.asarray(mem, np.float32).reshape(-1, 3),
-        mat_specular_ex=np.asarray(mex, np.float32).reshape(-1),
-        mat_use_texture=np.asarray(mut, bool).reshape(-1),
-        mat_tex_index=np.asarray(mti, np.int32).reshape(-1),
-        num_triangles=tri_off,
-        max_depth=depth,
-    )
 
 
 def set_frame(scene: FlatScene, model_index: int,

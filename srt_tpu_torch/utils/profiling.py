@@ -1,10 +1,42 @@
-"""Performance instrumentation: rays/s meters and profiler hooks
-(counterpart of ``srt_tpu/utils/profiling.py``).
+"""Performance instrumentation: spans at the renderer's layer boundaries,
+rays/s meters and profiler hooks (counterpart of
+``srt_tpu/utils/profiling.py``).
 
 The reference prints a frame time every 60 frames (src/main.cpp:616-620).
-Here: a ``RaysPerSecondMeter`` that counts the rays actually traced (the
-integrator's per-bounce stats), wall-clock timing that waits for the
-card, and ``torch.profiler`` trace capture.
+Here: named spans (``span``), a ``RaysPerSecondMeter`` that counts the
+rays actually traced (the integrator's per-bounce stats), and
+``torch.profiler`` trace capture.
+
+**Spans.**  ``with span("srt.walk"): ...`` marks one stage of the
+renderer.  Each span goes to exactly one of two sinks, chosen when it is
+entered:
+
+* while a ``torch.profiler`` window records, a ``record_function`` range,
+  so the span lies on the profiler's timeline beside the device
+  operations it launched (they carry it in their launch context);
+* otherwise the span's host-clock seconds and one call are added to an
+  in-memory aggregate keyed by its path, the names of the open spans
+  from the outermost down, joined by ``/``
+  (``srt.render/srt.bounce.2/srt.shade/srt.walk``).
+
+So host times in the aggregate never include the profiler's own cost.
+The aggregate is a tree of the span names seen, so it grows with the
+fixed set of names, not with the calls; ``span_totals()`` reads it and
+``reset_spans()`` clears it.  Spans are opened from one host thread (the
+one that drives the renderer).  The spans and what each covers:
+
+* ``srt.render``: one ``RenderPlan.render`` frame;
+* ``srt.raygen``: the compact driver's ray generation (jitter, viewport,
+  rays, the Morton permutation and its upload);
+* ``srt.bounce.<b>``: pass ``b`` (from 1) of the compact driver's bounce
+  loop; its self time is the compaction;
+* ``srt.shade``: one ``pathtracer.bounce_step``, its walks included;
+* ``srt.walk``: one ``traversal.model_hit``;
+* ``srt.forward``, ``srt.backward``, ``srt.update``: an optimizer step's
+  loss, ``backward()`` and update with its projection;
+* ``srt.setup.flatten``, ``srt.setup.plan``, ``srt.setup.kernels``: scene
+  flattening, building a render plan (its probe frame included) and
+  loading (building when stale) the kernel library.
 """
 
 from __future__ import annotations
@@ -16,51 +48,83 @@ from typing import Optional
 
 import torch
 
+# True while a torch.profiler window records (not in its warm-up steps).
+_profiler_enabled = torch._C._autograd._profiler_enabled
 
-class Timer:
-    """Wall-clock timer (``with Timer() as t: ...``; ``t.elapsed`` s).
-    Work queued on the card inside the block is not waited for: end the
-    block with ``torch.cuda.synchronize()`` to time it."""
+
+class _Node:
+    """One path of the aggregate: its child spans by name, its closed
+    calls and their seconds."""
+
+    __slots__ = ("children", "calls", "seconds")
 
     def __init__(self):
-        self.elapsed = 0.0
+        self.children = {}
+        self.calls = 0
+        self.seconds = 0.0
+
+
+_root = _Node()
+_open = [_root]          # the aggregate's open spans, innermost last
+
+
+class _Span:
+    __slots__ = ("name", "node", "t0", "record")
+
+    def __init__(self, name: str):
+        self.name = name
 
     def __enter__(self):
-        self._t0 = time.perf_counter()
+        if _profiler_enabled():
+            self.node = None
+            self.record = torch.profiler.record_function(self.name)
+            self.record.__enter__()
+            return self
+        parent = _open[-1]
+        node = parent.children.get(self.name)
+        if node is None:
+            node = parent.children[self.name] = _Node()
+        _open.append(node)
+        self.node = node
+        self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
-        self.elapsed = time.perf_counter() - self._t0
+        node = self.node
+        if node is None:
+            self.record.__exit__(*exc)
+            return False
+        node.seconds += time.perf_counter() - self.t0
+        node.calls += 1
+        _open.pop()
         return False
 
 
-def _on_cuda(x) -> bool:
-    if isinstance(x, torch.Tensor):
-        return x.is_cuda
-    if isinstance(x, (tuple, list)):
-        return any(_on_cuda(v) for v in x)
-    if isinstance(x, dict):
-        return any(_on_cuda(v) for v in x.values())
-    return False
+def span(name: str) -> _Span:
+    """A context manager marking one stage of the renderer as ``name``:
+    a profiler range while a ``torch.profiler`` window records, else host
+    seconds added to the aggregate under the span's path."""
+    return _Span(name)
 
 
-def _wait(result, sync: bool):
-    if sync and _on_cuda(result):
-        torch.cuda.synchronize()
+def span_totals() -> dict:
+    """A copy of the aggregate: ``{path: (calls, seconds)}`` for every
+    path with a closed span."""
+    out = {}
+    stack = [("", _root)]
+    while stack:
+        prefix, node = stack.pop()
+        for name, child in node.children.items():
+            path = prefix + name
+            if child.calls:
+                out[path] = (child.calls, child.seconds)
+            stack.append((path + "/", child))
+    return out
 
 
-def timed(fn, *args, sync=True, repeats=1):
-    """Run ``fn(*args)`` once to warm up, then ``repeats`` times; returns
-    (result, seconds a call) of the steady state.  With ``sync`` the card
-    is synchronised after the warm-up and after the timed calls when any
-    output tensor lies on it."""
-    result = fn(*args)
-    _wait(result, sync)
-    t0 = time.perf_counter()
-    for _ in range(repeats):
-        result = fn(*args)
-    _wait(result, sync)
-    return result, (time.perf_counter() - t0) / max(1, repeats)
+def reset_spans() -> None:
+    """Empty the aggregate (spans open now still close without error)."""
+    _root.children.clear()
 
 
 class RaysPerSecondMeter:
