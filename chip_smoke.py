@@ -101,24 +101,47 @@ Phases, one line each; the last line is printed only when all pass:
    config6: d mean(image) / d (mat_diffuse, positions) of the headline
    mesh through ``with_positions`` at 256x256, 2 bounces, bounce re-sort:
    one differentiated frame whose every kernel launch is replayed through
-   its plain version, then forward and forward + backward wall seconds
-   (median of 3 after a warm call), their ratio, peak
-   ``max_memory_allocated``; finite, nonzero gradients; B1, B2 and
-   threefry launched.  (b) config10b: ``run_inverse_rendering`` from
-   (mat_diffuse * 0.9, positions * 1.001) toward the image of the true
-   parameters (key 3), 6 fixed-noise Adam steps at 1e-3: s/step (mean of
-   steps 1-5), finite losses.  (c) config2: d mean / d albedo of the
-   sphere scene at 512x512, spp 16, 4 bounces.  (d) config3: d mean / d
-   mat_diffuse of ``rubik_grid()`` at 512x512, 4 bounces, ``ray_tile``
-   8192.  (e) parity: at ``uv_sphere(12, 18)``, 32x32 the walk's
+   its plain version, and whose every row gather's backward
+   (``ops/gather.gather_rows_backward``) is compared with its plain
+   version and a float64 sum (``GATHER_REL_TOL``) and called again (bit
+   for bit); then forward and forward + backward wall seconds (median of
+   3 after a warm call), their ratio, peak ``max_memory_allocated``;
+   finite, nonzero gradients; B1, B2, threefry and the two
+   ``gather_bwd`` kernels launched.  (b) config10b:
+   ``run_inverse_rendering`` from (mat_diffuse * 0.9, positions * 1.001)
+   toward the image of the true parameters (key 3), 6 fixed-noise Adam
+   steps at 1e-3: s/step (mean of steps 1-5), finite losses; each row
+   gather whose table needs grad launches ``gather_bwd`` and
+   ``gather_bwd_merge`` once (the ``kernels`` line's launches).  (c)
+   config2: d mean / d albedo of the sphere scene at 512x512, spp 16, 4
+   bounces.  (d) config3: d mean / d mat_diffuse of ``rubik_grid()`` at
+   512x512, 4 bounces, ``ray_tile`` 8192, the ``gather_bwd`` kernels
+   launched.  (e) parity: at ``uv_sphere(12, 18)``, 32x32 the walk's
    gradients on the card against the port's CPU run and against the
    dense sweep on the card, on the pixels whose three images agree
    (``GRAD_TOL``, L2);
    ``refit_accel`` of the headline mesh on the card against the host
    build (cluster boxes equal, Woop rows within rtol 2e-4 / atol 2e-5 of
    the triangle's scale) and a config6 frame on the refit tables against
-   the uploaded ones (the image criterion of 5).  No kernel has a
-   backward: the walks are candidate searches outside the autograd graph.
+   the uploaded ones (the image criterion of 5).  The walks have no
+   backward: they are candidate searches outside the autograd graph.
+   (f) The row gather's backward (``ops/gather.gather_rows_backward``:
+   the indices' sort and ``csrc/gather_bwd.cu``'s two launches) at the
+   inverse cell's record gather (K = 101,760 rows, C = 36, N = 2^20, the
+   gradient component-first) with 43% and with 100% of the indices on
+   row 0, the rest uniform over the other rows: ms (device), the two
+   launches' own ms, the plain version's ms on the card (``index_put_``
+   on the gradient as it lies), the library's two backwards of
+   ``table[idx]`` (``index_put_`` with ``accumulate=True`` on a
+   contiguous [N, C] gradient; ``F.embedding``'s
+   ``embedding_dense_backward``, with its error and whether two calls
+   agree), the bound (bytes at 3.35 TB/s), the largest relative error of
+   a row (L2) against a float64 sum, which must stay under
+   ``GATHER_REL_TOL``, and two calls equal bit for bit.  Then small cases
+   against the float64 sum: runs across chunk boundaries and chunks of
+   one run, a ragged last chunk, a permutation, one row
+   (``mat_diffuse``'s gather), C = 3 row-major (``with_positions``), a
+   strided gradient, and negative indices.  Its entry of the ``kernels`` line is the 43% case.
 11. Textures and next-event estimation (``bench_suite.py``'s config9 and
    config11).  (a) config9: the headline mesh with the procedural
    512x512 checker x gradient map in a 6-level mip atlas (``pack_atlas``;
@@ -364,6 +387,9 @@ HEADLINE_CAMERA = dict(origin=(0.0, 1.0, 5.0), look_at=(0.0, 0.0, 0.0))
 # (srt_tpu/ops/traversal_pallas.py:1689).
 SCAN_MESH_PATH = ("cull", "intersect", "threefry")
 ONE_SUPER_PATH = ("intersect", "threefry")
+# What a backward through a mesh adds: the row gathers' two launches
+# (ops/gather.gather_rows, csrc/gather_bwd.cu).
+GATHER_BWD = ("gather_bwd", "gather_bwd_merge")
 SPHERE_PATH = ("threefry",)
 CONFIG3_CAMERA = dict(origin=(0.0, 20.0, 20.0), look_at=(0.0, 1.0, -1.0))
 UNION_CAMERA = dict(origin=(0.0, 2.0, 5.0), look_at=(0.0, 0.0, -2.0))
@@ -388,6 +414,12 @@ CONFIG3_RAY_TILE, SCAN_FRAMES = 8192, 3
 GRAD_REPS, CONFIG10B_STEPS = 3, 6
 GRAD_SMALL_SPHERE, GRAD_SMALL_SIZE = (12, 18), 32
 GRAD_TOL = 1e-3
+# Phase 10f (the row gather's backward): the record table's rows and
+# columns, the entries (one a pixel of a 1024x1024 frame), the shares of
+# them on row 0, the largest relative error of a row against a float64 sum.
+GATHER_ROWS, GATHER_COLS, GATHER_N = 101_760, 36, 1 << 20
+GATHER_ROW0_SHARES = (0.43, 1.0)
+GATHER_REL_TOL = 1e-5
 # Phase 11 (textures and NEE, bench_suite.py's config9 and config11):
 # config9's image size, map size, mip levels and timed frames a variant;
 # the textured plan's size; config11's image size and keys an arm; the
@@ -2157,10 +2189,73 @@ def refit_scale(scene):
                       inv.max((1, 2)))
 
 
+@contextlib.contextmanager
+def recorded_gather_bwd():
+    """While the block runs, record each row gather's backward
+    (``gather.gather_rows_backward``, which ``GatherRows.backward`` calls):
+    yields a list of (gradient, indices, rows, result), cloned."""
+    from srt_tpu_torch.ops import gather
+    calls, run = [], gather.gather_rows_backward
+
+    def call(grad_cf, idx, rows):
+        out = run(grad_cf, idx, rows)
+        calls.append((grad_cf.clone(), idx.clone(), rows, out.clone()))
+        return out
+    gather.gather_rows_backward = call
+    try:
+        yield calls
+    finally:
+        gather.gather_rows_backward = run
+
+
+def replay_gather_bwd(tag, calls, card):
+    """Each recorded row gather's backward against its plain version and
+    a float64 sum, and a second call on the same inputs (bit for bit)."""
+    import torch
+
+    from srt_tpu_torch.ops import gather
+    check(len(calls) > 0, f"[{tag}] no row gather's backward ran")
+    for k, (grad, idx, rows, got) in enumerate(calls):
+        idx = torch.remainder(idx, rows)
+        err = gather_rel_err(got, idx, grad, rows)
+        p_err = gather_rel_err(
+            gather.gather_rows_backward_plain(grad, idx, rows), idx, grad,
+            rows)
+        same = bool(torch.equal(
+            gather.gather_rows_backward(grad, idx, rows), got))
+        share = float((idx == 0).float().mean())
+        print(f"[{tag}] gather_bwd call {k}: K={rows} C={grad.shape[0]} "
+              f"N={idx.shape[0]} ({100 * share:.1f}% on row 0): max rel "
+              f"err {err:.3e} against float64 (plain {p_err:.3e}), a "
+              f"second call equal bit for bit: {same}  [{card}]", flush=True)
+        check(same and err < GATHER_REL_TOL,
+              f"[{tag}] gather_bwd call {k}: rel err {err}, equal {same}")
+
+
+@contextlib.contextmanager
+def counted_grad_gathers():
+    """While the block runs, count the row gathers (``GatherRows.apply``)
+    whose table needs grad under grad mode: yields a one-item list."""
+    import torch
+
+    from srt_tpu_torch.ops import gather
+    count, apply = [0], gather.GatherRows.apply
+
+    def counted(table, idx, cf=False):
+        count[0] += table.requires_grad and torch.is_grad_enabled()
+        return apply(table, idx, cf)
+    gather.GatherRows.apply = counted
+    try:
+        yield count
+    finally:
+        del gather.GatherRows.apply   # back to autograd.Function's
+
+
 def phase_grad(scene, cases, profile, dev):
     """Phase 10: gradients and the trainer (``bench_suite.py``'s config6
     backward, config10b's optimizer steps, config2's and config3's
-    backward passes) and their parity on the card."""
+    backward passes) and their parity on the card.  Returns the launches
+    each row gather's backward made in config10b."""
     import numpy as np
     import torch
 
@@ -2190,17 +2285,19 @@ def phase_grad(scene, cases, profile, dev):
     # mesh.  One differentiated frame with every launch replayed through
     # its plain version, then forward and backward timed.
     out = []
-    launched = replay_frame(
-        "10a", lambda: out.append(grad_of(loss6, params6, key0)), cases)
+    with recorded_gather_bwd() as gathers:
+        launched = replay_frame(
+            "10a", lambda: out.append(grad_of(loss6, params6, key0)), cases)
     check(launched == set(SCAN_MESH_PATH),
           f"the differentiated config6 frame launched {sorted(launched)}")
+    replay_gather_bwd("10a", gathers, card)
     tr.reset_launch_counts()
     with torch.no_grad():
         fwd_s, _ = host_median(lambda: loss6(params6, key0))
     torch.cuda.reset_peak_memory_stats(dev)
     bwd_s, grads = host_median(lambda: grad_of(loss6, params6, key0))
     peak = torch.cuda.max_memory_allocated(dev) / gib
-    found = path_launches("config6 backward", SCAN_MESH_PATH,
+    found = path_launches("config6 backward", SCAN_MESH_PATH + GATHER_BWD,
                           tr.launch_counts)
     mags = check_grads("config6", grads)
     again = rel_err(grad_of(loss6, params6, key0), grads)
@@ -2224,12 +2321,19 @@ def phase_grad(scene, cases, profile, dev):
     stamps = [time.perf_counter()]
     tr.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats(dev)
-    res = optim.run_inverse_rendering(
-        image6, params0, target, rng.key(3, dev), steps=CONFIG10B_STEPS,
-        learning_rate=1e-3, fixed_noise=True, log_every=0,
-        callback=lambda i, p, loss: stamps.append(time.perf_counter()))
+    with counted_grad_gathers() as needs_grad:
+        res = optim.run_inverse_rendering(
+            image6, params0, target, rng.key(3, dev), steps=CONFIG10B_STEPS,
+            learning_rate=1e-3, fixed_noise=True, log_every=0,
+            callback=lambda i, p, loss: stamps.append(time.perf_counter()))
     peak = torch.cuda.max_memory_allocated(dev) / gib
-    found = path_launches("config10b", SCAN_MESH_PATH, tr.launch_counts)
+    found = path_launches("config10b", SCAN_MESH_PATH + GATHER_BWD,
+                          tr.launch_counts)
+    # The trainer's row gathers that need grad, each with its 2 launches.
+    gathers = needs_grad[0]
+    check(all(found[k] == gathers for k in GATHER_BWD),
+          f"config10b: {gathers} row gathers needed grad, launches {found}")
+    gather_launches = sum(found[k] for k in GATHER_BWD) // gathers
     losses = res.losses
     check(len(losses) == CONFIG10B_STEPS and np.isfinite(losses).all(),
           f"config10b: losses {losses}")
@@ -2241,7 +2345,8 @@ def phase_grad(scene, cases, profile, dev):
           f"steps 1-{CONFIG10B_STEPS - 1}), step 0 "
           f"{stamps[1] - stamps[0]:.6f} s, losses {losses}, last/first "
           f"{losses[-1] / losses[0]:.6f}, peak memory {peak:.3f} GiB, "
-          f"launches {found}  [{card}]", flush=True)
+          f"launches {found}: {gathers} row gathers needed grad, "
+          f"{gather_launches} launches each  [{card}]", flush=True)
 
     # (c) config2's backward: d mean / d albedo, 16 samples, 4 bounces.
     spheres = default_sphere_scene(dev)
@@ -2290,7 +2395,7 @@ def phase_grad(scene, cases, profile, dev):
     bwd_s, grads = host_median(lambda: grad_of(loss3, (rubik.mat_diffuse,),
                                                key0))
     peak = torch.cuda.max_memory_allocated(dev) / gib
-    found = path_launches("config3 backward", ONE_SUPER_PATH,
+    found = path_launches("config3 backward", ONE_SUPER_PATH + GATHER_BWD,
                           tr.launch_counts)
     finite = bool(torch.isfinite(grads[0]).all())
     check(finite, "config3: non-finite gradient")
@@ -2389,6 +2494,158 @@ def phase_grad(scene, cases, profile, dev):
           f"  [{card}]", flush=True)
     print(f"[10] gradient phase: {time.perf_counter() - t_phase:.1f} s",
           flush=True)
+    return gather_launches
+
+
+def gather_case(dev, rows, cols, n, row0, seed):
+    """Indices [n] (int32) with a share ``row0`` on row 0 and the rest
+    uniform over rows 1..rows-1, and a component-first gradient [cols, n],
+    from ``seed``."""
+    import torch
+    gen = torch.Generator(dev).manual_seed(seed)
+    idx = torch.randint(1, max(rows, 2), (n,), device=dev, generator=gen,
+                        dtype=torch.int32) % rows
+    idx[torch.rand(n, device=dev, generator=gen) < row0] = 0
+    grad = torch.randn((cols, n), device=dev, generator=gen)
+    return idx, grad
+
+
+def gather_rel_err(got, idx, grad_cf, rows):
+    """The largest relative L2 error of a row of ``got`` against the
+    float64 sum of its entries (rows with entries)."""
+    import torch
+    ref = torch.zeros((rows, grad_cf.shape[0]), dtype=torch.float64,
+                      device=got.device).index_put_(
+        (idx.long(),), grad_cf.T.double(), accumulate=True)
+    norm = torch.linalg.vector_norm(ref, dim=1)
+    err = torch.linalg.vector_norm(got.double() - ref, dim=1)
+    used = norm > 0
+    return float((err[used] / norm[used]).max()) if used.any() else 0.0
+
+
+def phase_gather_bwd(card, dev, launches):
+    """Phase 10f: the row gather's backward against its plain version,
+    the library's two backwards of ``table[idx]`` and a float64 sum;
+    returns its entry of the ``kernels`` line, with the ``launches`` a
+    gather's backward made on the trainer's path (10b)."""
+    import torch
+
+    from srt_tpu_torch.ops import cuda_lib, gather
+
+    rows, cols, n = GATHER_ROWS, GATHER_COLS, GATHER_N
+    entry = None
+    for q, share in enumerate(GATHER_ROW0_SHARES):
+        idx, grad = gather_case(dev, rows, cols, n, share, 10 + q)
+        first = gather.gather_rows_backward(grad, idx, rows)
+        second = gather.gather_rows_backward(grad, idx, rows)
+        same = bool(torch.equal(first, second))
+        err = gather_rel_err(first, idx, grad, rows)
+        ms, reps, queued = device_median(
+            lambda: gather.gather_rows_backward(grad, idx, rows))
+        # The two launches alone, on keys sorted once.
+        keys, pos = torch.sort(idx, stable=True)
+        slots = 2 * -(-n // gather.CHUNK)
+        out = torch.zeros((rows, cols), device=dev)
+        part = torch.empty((slots, cols), device=dev)
+        part_row = torch.empty((slots,), dtype=torch.int32, device=dev)
+
+        def launches_only():
+            cuda_lib.launch("gather_bwd", keys, pos, grad, grad.stride(0),
+                            grad.stride(1), cols, n, slots, out, part,
+                            part_row)
+            cuda_lib.launch("gather_bwd_merge", part_row, part, cols, slots,
+                            out)
+        k_ms = device_median(launches_only)[0]
+        check(torch.equal(out, first), "gather_bwd: the launches on sorted "
+                                       "keys differ from the wrapper's")
+        p_ms, plain = timed_median(
+            lambda: gather.gather_rows_backward_plain(grad, idx, rows), reps=3)
+        p_err = gather_rel_err(plain, idx, grad, rows)
+        rows_major = grad.T.contiguous()
+        idx_long = idx.long()
+        lib_ms = timed_median(lambda: torch.zeros(
+            (rows, cols), device=dev).index_put_(
+            (idx_long,), rows_major, accumulate=True), reps=3)[0]
+        del rows_major
+
+        # F.embedding's backward: a sort and a reduction of segments.
+        def embedding():
+            return torch.ops.aten.embedding_dense_backward(
+                grad.T, idx, rows, -1, False)
+        emb_ms, emb = timed_median(embedding, reps=3)
+        emb_same = bool(torch.equal(emb, embedding()))
+        emb_err = gather_rel_err(emb, idx, grad, rows)
+        del emb
+        b_ms = (4 * cols * n + 4 * n + 4 * rows * cols) / PEAK_BYTES_S * 1e3
+        bk_ms = (4 * cols * n + 12 * n + 4 * rows * cols) / PEAK_BYTES_S * 1e3
+        case = f"K={rows} C={cols} N={n}, {share:.0%} on row 0"
+        print(f"[10f] gather_bwd {case}: {ms:.4f} ms "
+              f"({device_note(reps, queued)}; sort, zeros and 2 launches), "
+              f"the 2 launches {k_ms:.4f} ms "
+              f"(bound {bk_ms:.5f} ms, {100 * bk_ms / k_ms:.2f}% reached); "
+              f"bound {b_ms:.5f} ms (bytes, {100 * b_ms / ms:.2f}% reached); "
+              f"plain {p_ms:.3f} ms; library index_put_ {lib_ms:.3f} ms, "
+              f"embedding_dense_backward {emb_ms:.3f} ms (max rel err "
+              f"{emb_err:.3e}, two calls equal bit for bit: {emb_same}); "
+              f"max rel err {err:.3e} (plain {p_err:.3e}) against float64; "
+              f"two calls equal bit for bit: {same}  [{card}]", flush=True)
+        check(same, f"gather_bwd {case}: two calls differ")
+        check(err < GATHER_REL_TOL, f"gather_bwd {case}: relative error "
+                                    f"{err} against float64")
+        if entry is None:
+            entry = dict(
+                name="gather_bwd", route="cuda",
+                source="srt_tpu_torch/csrc/gather_bwd.cu",
+                replaces="none (XLA's scatter-add, "
+                         "srt_tpu/models/mesh.py:633)",
+                launches=launches,
+                max_abs_err=float((first - plain).abs().max()),
+                max_rel_err=err, bit_equal=same, ms=ms, kernel_ms=k_ms,
+                plain_ms=p_ms, bound_ms=b_ms, bound_by="bytes",
+                library_ms=lib_ms, embedding_ms=emb_ms)
+        del idx, grad, first, second, plain, keys, pos, out, part, part_row
+
+    # Small cases against the float64 sum, two calls equal each.
+    gen = torch.Generator(dev).manual_seed(12)
+    runs = torch.repeat_interleave(
+        torch.arange(40, device=dev, dtype=torch.int32),
+        torch.randint(1, 5000, (40,), device=dev, generator=gen))
+    small = [
+        ("runs across chunks, ragged last chunk", runs[torch.randperm(
+            runs.shape[0], device=dev, generator=gen)], 40, 36, False),
+        ("one run of 2 chunks + 1", torch.zeros(
+            2 * gather.CHUNK + 1, device=dev, dtype=torch.int32), 3, 36,
+         False),
+        ("permutation", torch.randperm(9000, device=dev, generator=gen).to(
+            torch.int32), 9000, 36, False),
+        ("one row (mat_diffuse)", torch.zeros(
+            rows, device=dev, dtype=torch.int32), 1, 3, False),
+        ("C=3 row-major (with_positions)", torch.randint(
+            0, 51_200, (rows,), device=dev, generator=gen,
+            dtype=torch.int32), 51_200, 3, False),
+        ("strided gradient", gather_case(dev, 300, 36, 10_000, 0.5, 13)[0],
+         300, 36, True),
+        ("negative indices", gather_case(dev, 300, 5, 10_000, 0.5, 15)[0]
+         - 300, 300, 5, False),
+    ]
+    for label, idx, k, c, strided in small:
+        m = idx.shape[0]
+        if strided:
+            grad = torch.randn((c, 2 * m), device=dev, generator=gen)[:, ::2]
+        elif c == 3:
+            grad = torch.randn((m, c), device=dev, generator=gen).T
+        else:
+            grad = torch.randn((c, m), device=dev, generator=gen)
+        first = gather.gather_rows_backward(grad, idx, k)
+        second = gather.gather_rows_backward(grad, idx, k)
+        err = gather_rel_err(first, torch.remainder(idx, k), grad, k)
+        same = bool(torch.equal(first, second))
+        print(f"[10f] gather_bwd {label} (K={k} C={c} N={m}): max rel err "
+              f"{err:.3e} against float64, two calls equal bit for bit: "
+              f"{same}", flush=True)
+        check(same and err < GATHER_REL_TOL,
+              f"gather_bwd {label}: rel err {err}, equal {same}")
+    return entry
 
 
 def phase_textures_nee(scene, cases, profile, dev):
@@ -4009,7 +4266,8 @@ def main(argv=None) -> int:
                     "config8": (scene8, CONFIG8_SIZE)}, cases)
     phase_binned(scene, cases, args.profile)
     phase_scan(scene, cases, args.profile, dev)
-    phase_grad(scene, cases, args.profile, dev)
+    gather_launches = phase_grad(scene, cases, args.profile, dev)
+    gather_entry = phase_gather_bwd(card, dev, gather_launches)
     phase_textures_nee(scene, cases, args.profile, dev)
     phase_app(scene, cases, args.profile, dev)
     phase_edge_aware(scene, cases, args.profile, dev)
@@ -4034,6 +4292,7 @@ def main(argv=None) -> int:
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
             library_ms=rec.get("library_ms")))
+    kernels.append(gather_entry)
     print(f"[17] all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -18,7 +18,9 @@ material rows, the vertices (``tri_v0/v1/v2``, or a shared ``positions``
 buffer through ``with_positions``), ``frames`` and the rays.  The walk
 is a candidate search outside the autograd graph; the exact refine of
 its winner is where its hits depend on them.  ``refit_accel`` rebuilds
-the walk tables after vertices move.
+the walk tables after vertices move.  The record gather and the table
+gathers that feed it go through ``ops/gather.gather_rows``, whose backward
+sums the duplicated rows (every missed ray reads row 0) with a kernel.
 
 Textured scenes: ``upload(atlas=...)`` keeps a packed atlas, its rects,
 its mip rects and (``quad_pack``) the quad table on the scene's device;
@@ -40,6 +42,7 @@ import torch
 from srt_tpu_torch.devices import resolve
 from srt_tpu_torch.models.pathtracer import Hit
 from srt_tpu_torch.ops import intersect, traversal, vec
+from srt_tpu_torch.ops.gather import gather_rows
 from srt_tpu_torch.ops.safemath import maximum
 from srt_tpu_torch.ops.texture import sample_atlas
 from srt_tpu_torch.scene import Materials
@@ -210,8 +213,10 @@ def with_positions(scene: MeshScene, positions) -> MeshScene:
     rebuilds them.  Shading normals are not re-derived."""
     vidx = scene.tri_vidx.long()
     return dataclasses.replace(
-        scene, positions=positions, tri_v0=positions[vidx[:, 0]],
-        tri_v1=positions[vidx[:, 1]], tri_v2=positions[vidx[:, 2]])
+        scene, positions=positions,
+        tri_v0=gather_rows(positions, vidx[:, 0]),
+        tri_v1=gather_rows(positions, vidx[:, 1]),
+        tri_v2=gather_rows(positions, vidx[:, 2]))
 
 
 def refit_accel(scene: MeshScene) -> MeshScene:
@@ -387,11 +392,11 @@ def _tri_record(scene: MeshScene) -> torch.Tensor:
     return torch.cat([
         scene.tri_v0, scene.tri_v1, scene.tri_v2,
         scene.uv0, scene.uv1, scene.uv2,
-        scene.mat_diffuse[m], scene.mat_specular[m],
+        gather_rows(scene.mat_diffuse, m), gather_rows(scene.mat_specular, m),
         scene.mat_specular_ex[m][:, None],
         scene.mat_use_texture[m][:, None].to(torch.float32),
         scene.mat_tex_index[m][:, None].to(torch.float32),
-        scene.mat_emissive[m],
+        gather_rows(scene.mat_emissive, m),
         scene.tri_n0, scene.tri_n1, scene.tri_n2,
     ], dim=1)
 
@@ -587,7 +592,7 @@ def mesh_hit_fn(scene: MeshScene, method: str = "walk",
                 use_spec=torch.zeros_like(hit)))
 
         idx = torch.clamp_min(best_i, 0)
-        rec_t = record[idx.long()].T                        # [36, N]
+        rec_t = gather_rows(record, idx, cf=True)           # [36, N]
         v0, v1, v2 = rec_t[0:3], rec_t[3:6], rec_t[6:9]
         e1 = v1 - v0
         e2 = v2 - v0

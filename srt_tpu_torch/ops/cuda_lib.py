@@ -9,7 +9,7 @@ Nothing here runs at import time.
 
 ``launch`` calls one C entry point on PyTorch's current stream, raises if
 the launch failed and adds one to ``launch_counts[name]``: the kernel
-wrappers (``ops/traversal.py``, ``ops/rng.py``,
+wrappers (``ops/traversal.py``, ``ops/rng.py``, ``ops/gather.py``,
 ``tools/micro_occ.py``) count only real kernel
 launches this way, never a plain-version call.  ``launch_counts`` also
 holds ``BRANCH_COUNTERS``, which ``traversal.model_hit`` advances itself.
@@ -51,6 +51,7 @@ NVCC_FLAGS = GENCODE + (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
+_L = ctypes.c_longlong
 _WALK_B2 = [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P]
 _WALK_B4 = [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P]
 # C entry points: name -> argument types (the trailing stream included).
@@ -69,6 +70,8 @@ SIGNATURES = {
                    _P],
     "srt_add_one": [_P, _P, _I, _P],
     "srt_occupancy_cf": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "srt_gather_bwd": [_P, _P, _P, _L, _L, _I, _I, _I, _P, _P, _P, _P],
+    "srt_gather_bwd_merge": [_P, _P, _I, _I, _P, _P],
 }
 # Branch counters of ``traversal.model_hit``'s pair-binned walk: calls
 # that took the pair tiles, calls that fell back to the tiled walk.  They

@@ -22,8 +22,9 @@ entered:
 So host times in the aggregate never include the profiler's own cost.
 The aggregate is a tree of the span names seen, so it grows with the
 fixed set of names, not with the calls; ``span_totals()`` reads it and
-``reset_spans()`` clears it.  Spans are opened from one host thread (the
-one that drives the renderer).  The spans and what each covers:
+``reset_spans()`` clears it.  Spans are opened from one host thread at a
+time: the one that drives the renderer, or the autograd engine's while
+that one waits in ``backward()``.  The spans and what each covers:
 
 * ``srt.render``: one ``RenderPlan.render`` frame;
 * ``srt.raygen``: the compact driver's ray generation (jitter, viewport,
@@ -34,6 +35,8 @@ one that drives the renderer).  The spans and what each covers:
 * ``srt.walk``: one ``traversal.model_hit``;
 * ``srt.forward``, ``srt.backward``, ``srt.update``: an optimizer step's
   loss, ``backward()`` and update with its projection;
+* ``srt.gather_bwd``: one row gather's backward
+  (``ops/gather.gather_rows_backward``: the sort and the kernel launches);
 * ``srt.setup.flatten``, ``srt.setup.plan``, ``srt.setup.kernels``: scene
   flattening, building a render plan (its probe frame included) and
   loading (building when stale) the kernel library.

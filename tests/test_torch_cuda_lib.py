@@ -3,6 +3,8 @@ place of the built one, the stream and device getters replaced, so that
 the binding's contract (pointers, ints, None, the stream last, the count,
 the raise, the device switch) is checked without a card."""
 
+import ctypes
+import re
 import types
 from pathlib import Path
 
@@ -95,3 +97,25 @@ def test_load_resolves_every_entry_point_once(tmp_path, monkeypatch):
         assert fn is getattr(lib.lib, name) and fn.argtypes == argtypes
     kernels = set(cuda_lib.launch_counts) - set(cuda_lib.BRANCH_COUNTERS)
     assert set(lib.functions) == kernels
+
+
+def _ctype(decl):
+    if "*" in decl:
+        return ctypes.c_void_p
+    if "long long" in decl:
+        return ctypes.c_longlong
+    if "unsigned" in decl:
+        return ctypes.c_uint
+    return ctypes.c_int if re.search(r"\bint\b", decl) else decl
+
+
+def test_signatures_match_the_c_entry_points():
+    """Each ``extern "C" int srt_<name>(...)`` of ``csrc`` has a
+    ``SIGNATURES`` entry with its arguments' ctypes, in order, and no entry
+    lacks its source: an argument added or dropped on one side alone would
+    shift every later argument of the call."""
+    src = "".join(p.read_text() for p in sorted(cuda_lib.CSRC.glob("*.cu*")))
+    found = {m.group(1): [_ctype(a) for a in m.group(2).split(",")]
+             for m in re.finditer(r'extern "C" int (srt_\w+)\(([^)]*)\)',
+                                  src)}
+    assert found == cuda_lib.SIGNATURES
